@@ -26,7 +26,7 @@ PACKAGE = "sph_mountain_waves_tpu"
 CORE_MODULES = [
     "algebra", "structs", "kernels", "grids", "geometry", "io",
     "ops.apply", "ops.neighbors", "ops.solvers", "ops.mg",
-    "ops.pallas_pairs",
+    "ops.pallas_pairs", "ops.kernel_parity",
     "parallel.domain", "parallel.bucket", "parallel.run",
     "utils.packing", "utils.fixpa", "utils.entropy", "utils.icr",
     "utils.checkpoint", "utils.metrics", "utils.rkpm", "utils.plots",

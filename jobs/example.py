@@ -55,17 +55,15 @@ if __name__ == "__main__":
     elif args.scheme in LEGACY_FACTORIES:
         from sph_mountain_waves_tpu.models import legacy_witch as lw
         factory = getattr(lw, LEGACY_FACTORIES[args.scheme])
-        kw = dict(t_end=args.t_end, dtype="float32", use_pallas=True,
-                  fast_math=True)
+        kw = dict(t_end=args.t_end, dtype="float32", use_pallas=True)
         if args.scheme != "terrain":   # terrain fixes its own resolution
             kw["n_rows"] = args.rows
         cfg = factory(**kw)
     else:
         from sph_mountain_waves_tpu.models.witch_common import WitchConfig
-        # measured-optimal production layout (BENCHMARKS.md): skin 0.15
-        # keeps hex-lattice bucket occupancy <= 6 -> cap 8 (skin 0.2 tips
-        # occupancy to 8 -> cap 16, ~2x the pair-sweep cost);
-        # lattice-aligned cells keep occupancy uniform
+        # production layout: skin 0.15 keeps hex-lattice bucket occupancy
+        # <= 6 -> cap 8 (skin 0.2 tips occupancy to 8 -> cap 16, ~2x the
+        # pair-sweep work); lattice-aligned cells keep occupancy uniform
         cfg = WitchConfig(n_rows=args.rows, t_end=args.t_end, dtype="float32",
                           self_density=True, layout="bucket", skin=0.15,
                           lattice_cells=True, lazy_diagnostics=True,

@@ -1,4 +1,4 @@
-"""Linear-regime mountain-wave drag vs hydrostatic theory (TPU experiment).
+"""Linear-regime mountain-wave drag vs hydrostatic theory (GPU experiment).
 
 BASELINE's north-star observable is wave drag. The blocked-flow reference
 terrain (h_m = 13 km) has no closed form, but the LINEAR hydrostatic regime
@@ -25,9 +25,10 @@ Scaled geometry (real constants, U = 20 m/s):
 Drag time scale: vertical group speed c_gz ~= U^2/(N*a) ~= 4 m/s fills the
 wave region in ~2500 s ~= 10 advective times a/U.
 
-Run on TPU (one job at a time!):  python scripts/linear_drag.py
-Appends one result line to /tmp/linear_drag.log.
+Run on a GPU (one job per card):  python scripts/linear_drag.py
+Appends one result line to results/linear_drag.log in the checkout.
 """
+import os
 import sys
 import time
 
@@ -62,9 +63,9 @@ def run(n_rows=200, t_end=2500.0, use_pallas=True, verbose=True,
     cfg = lw.adiabatic_flow_config(
         n_rows=n_rows, dom_height=dom_height, dom_length=60e3, z_b=z_b,
         h_m=h_m, a=a, t_end=t_end, n_frames=100, dtype="float32",
-        use_pallas=use_pallas, fast_math=use_pallas,
+        use_pallas=use_pallas,
         # the corrected-physics bundle (all three reference defects
-        # repaired — see LegacyConfig): without them the tunnel is
+        # repaired — see LegacyConfig): without them the run is
         # unusable (sponge body force / entropy-init imbalance /
         # boundary suction). CPU-piloted: u_avg holds ~U steadily.
         true_rayleigh=True, consistent_entropy=True,
@@ -174,7 +175,10 @@ def run(n_rows=200, t_end=2500.0, use_pallas=True, verbose=True,
             f"D_sfc={D_sfc:.4g} D_lin={D_lin:.4g} "
             f"ratio={ratio:.3f}+-{sig/D_lin:.3f} wall={wall:.0f}s")
     print(line, flush=True)
-    with open("/tmp/linear_drag.log", "a") as f:
+    log = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "results", "linear_drag.log")
+    os.makedirs(os.path.dirname(log), exist_ok=True)
+    with open(log, "a") as f:
         f.write(line + "\n")
     return res, D, D_lin
 

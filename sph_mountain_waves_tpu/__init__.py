@@ -1,4 +1,4 @@
-"""sph_mountain_waves_tpu — a TPU-native SPH framework.
+"""sph_mountain_waves_tpu — an SPH framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 moschehaus/sph-mountain-waves (a fork of SmoothedParticles.jl): weakly
@@ -8,7 +8,7 @@ DSL, particle lattices, Paraview PVD/VTP I/O, packing utilities, and the
 
 Reference public API surface: /root/reference/src/SmoothedParticles.jl:14-79.
 
-Design (TPU-first, not a translation):
+Design (accelerator-first, not a line-by-line translation):
   * particle state is a struct-of-arrays pytree with a fixed capacity and an
     ``active`` mask (dynamic particle counts without recompiles),
   * the threaded cell-list + pairwise loops of the reference
@@ -17,7 +17,7 @@ Design (TPU-first, not a translation):
   * physics closures are pure functions applied through ``apply_unary`` /
     ``apply_binary`` (mirroring reference ``apply!``, core.jl:151-161),
   * whole frame intervals run inside one ``lax.scan`` under ``jit``,
-  * multi-chip scaling = domain decomposition over a ``jax.sharding.Mesh``
+  * multi-device scaling = domain decomposition over a ``jax.sharding.Mesh``
     with ``lax.ppermute`` halo exchange (parallel/).
 """
 

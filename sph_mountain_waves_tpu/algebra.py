@@ -1,6 +1,6 @@
 """Math substrate (L1).
 
-TPU-native replacement for the reference's hand-unrolled StaticArrays algebra
+JAX replacement for the reference's hand-unrolled StaticArrays algebra
 (reference: src/algebra.jl). Here vectors/matrices are ordinary ``jnp``
 arrays — XLA already emits optimal elementwise code, so the value of this
 module is API parity (``RealVector``, ``VECX``, ``dot``, ``norm``,

@@ -5,7 +5,7 @@ Same shape vocabulary and semantics as the reference (src/geometry.jl): every
 shapes compose with ``+ - *`` (union / difference / intersection), walls are
 built with the ``BoundaryLayer`` probe-dilation trick (src/geometry.jl:196-232).
 
-TPU-first difference: ``is_inside`` is **vectorized** — ``x`` may be a single
+Difference from the reference: ``is_inside`` is **vectorized** — ``x`` may be a single
 3-vector or an ``[N, 3]`` array of points, returning a boolean array. Geometry
 runs only at setup time on the host, so it is NumPy (covering a fine lattice
 with millions of candidate points is a vector op, not a Python loop as in the

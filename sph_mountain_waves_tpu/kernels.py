@@ -6,10 +6,10 @@ is ``h`` (not the smoothing length), and each family exposes the value ``f``,
 radial derivative ``Df = dw/dr`` and reduced derivative ``rDf = (dw/dr)/r``
 (finite at r=0).
 
-TPU-first differences from the reference's scalar ``@fastmath`` Julia:
+Differences from the reference's scalar ``@fastmath`` Julia:
   * every function is **branchless and elementwise** — compact support is
     enforced with clamps/``where`` so the same code vectorizes over ``[N, K]``
-    pair blocks on the VPU and is jit/vmap/grad-safe,
+    pair blocks and is jit/vmap/grad-safe,
   * ``h`` may itself be an array (per-pair smoothing lengths — needed by the
     Hopkins adaptive-h schemes, reference src/current/hopkins_total_witch.jl:233-247).
 

@@ -42,7 +42,7 @@ class Config:
     t_end: float = 0.5
     n_frames: int = 200
     dtype: str = "float64"
-    # TPU fast path: bucket-resident layout + 27-offset Pallas pair kernels
+    # fast path: bucket-resident layout + 27-offset Pallas pair kernel
     # (requires float32; validated against the XLA path in tests/test_pallas.py)
     layout: str = "flat"
     skin: float = 0.0

@@ -1,6 +1,6 @@
 """2-D WCSPH dam break ("water collapse", explicit scheme).
 
-TPU-native rebuild of the reference benchmark sph_jl/examples/collapse_dry.jl
+JAX rebuild of the reference benchmark sph_jl/examples/collapse_dry.jl
 (the Violeau dam-break recomputation): continuity-equation density with
 δ-diffusion, linear EOS, symmetric pressure + viscous forces, two-half-drift
 pressure-stabilized Verlet, wavefront X / column height H / total energy E
@@ -50,7 +50,7 @@ class Config:
     t_end: float = 4.0
     n_frames: int = 200
     dtype: str = "float64"
-    # TPU fast path: bucket-resident layout + Pallas pair kernels (float32)
+    # fast path: bucket-resident layout + Pallas pair kernel (float32)
     layout: str = "flat"
     skin: float = 0.0
     use_pallas: bool = False

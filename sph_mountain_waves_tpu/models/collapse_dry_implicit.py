@@ -6,7 +6,7 @@ Lee (2008) free-surface detection λ = 1 − (1/d)∇·r with penalty
 C_free·max(λ,0) on the diagonal (math :9-31, stencils :147-163), and a
 pressure-corrected velocity update.
 
-TPU-native difference: the reference assembles an explicit sparse matrix and
+Difference from the reference: it assembles an explicit sparse matrix and
 calls IterativeSolvers.cg (:222-231); here the operator is **matrix-free** —
 one neighbor sweep per matvec — solved by jit-compiled CG with a Jacobi
 preconditioner, the whole step inside jit (SURVEY §3.4 rebuild note).

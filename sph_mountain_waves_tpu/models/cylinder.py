@@ -7,7 +7,7 @@ one bc_width upstream (add_new_particles!, :150-161) — and drag/lift
 measured from the force on OBSTACLE particles against the published DFG
 coefficients C_ref = (5.57953523384, 0.010618948146) (:163-216).
 
-TPU-native dynamic N: spawning activates free rows of the fixed-capacity
+Dynamic N: spawning activates free rows of the fixed-capacity
 state (outflow removal at x > chan_l frees rows each rebuild, so the slot
 pool recycles — the fixed capacity only needs modest headroom).
 

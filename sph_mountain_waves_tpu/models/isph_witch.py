@@ -59,8 +59,8 @@ class ISPHWitchConfig(WitchConfig):
     # divergence, and the projection's own spatial discretization error is
     # O(h²)-level — at the 208k baseline the rel-div left at tol 1e-4 is
     # ~1e-4 of the velocity scale, three orders below the rtol-1e-3
-    # fidelity gates, while the step cost drops 18.7 → 10.5 ms (73 → 35
-    # iterations, TPU-measured round 3; solver-bound so ms tracks its).
+    # fidelity gates, while the solve needs 35 instead of 73 iterations
+    # (round-3 measurement; the step is solver-bound).
     # Tighten to 1e-6 for solver studies; f32 stalls at ~7e-3 rel_res
     # either way (gate velocities, not P).
     cg_tol: float = 1e-4
@@ -284,7 +284,7 @@ def make_step(cfg: ISPHWitchConfig, engine):
 
 def baseline_config(**overrides) -> ISPHWitchConfig:
     """BASELINE.json config #4 sizing: 'ISPH variant of mountain-wave case
-    (pressure-Poisson CG path), ~200k particles', in the production TPU
+    (pressure-Poisson CG path), ~200k particles', in the production
     layout (bucket-resident + Pallas fused sweeps + lattice-aligned cells)."""
     n_rows = max(8, int(round(math.sqrt(2e5 / (400e3 / 26e3) / 1.0746))))
     kw = dict(n_rows=n_rows, dtype="float32", self_density=True,

@@ -81,11 +81,10 @@ class LegacyConfig:
     # per-frame terminal sparklines of the diagnostics (the reference's
     # unicodeplots-in-the-loop channel, wcsph_perturbed_witch.jl:15,393-405)
     live_plot: bool = False
-    # Pallas fast path for the isothermal-flow (terrain) pair sweeps —
-    # requires bucket layout; honored like WitchConfig.use_pallas/fast_math
+    # Pallas pair-sweep kernel for the legacy pair sweeps — requires bucket
+    # layout; honored like WitchConfig.use_pallas
     use_pallas: bool = False
-    fast_math: bool = False
-    # engine layout (bucket = production TPU layout; required for Pallas
+    # engine layout (bucket = the production layout; required for Pallas
     # and for the sharded runner) — consumed by make_system's freeze_opts
     layout: str = "flat"
     skin: float = 0.15
@@ -146,7 +145,7 @@ class LegacyConfig:
     # NO AV as committed (only physical μ = 1.6e-5 Pa·s), so an impulsive
     # start leaves lattice-scale eddies (u′ ~ 100 m/s) that the floor
     # regenerates continuously — per-frame wave-flux noise σ ≈ 2.6·D_lin
-    # at the linear-drag config (TPU round 3). AV damping scales as
+    # at the linear-drag config (round 3). AV damping scales as
     # ν_AV·k² with ν_AV ≈ α·c·h0/8: lattice noise (k ~ π/dr) dies in
     # seconds at α = 0.02–0.05 while the mountain wave (k_z = N/U, λ_z ≫
     # h0) loses only ~e^(−ν k_z² z/c_gz) over its climb to the flux bands
@@ -460,9 +459,8 @@ def _wall_fraction(cfg: LegacyConfig, x):
 
     The table abscissae are a uniform linspace, so interpolation is index
     arithmetic + a 2-element ``jnp.take`` from the constant table — NOT
-    ``jnp.interp`` (whose searchsorted lowering was the only use of that
-    op on the TPU path, under suspicion in the round-4 lj_floor worker
-    crashes). Result cast back to the state dtype (an f64 leak here
+    ``jnp.interp`` (a searchsorted lowering, and the only use of that op
+    in the step). Result cast back to the state dtype (an f64 leak here
     breaks the scan carry on f32 configs under x64)."""
     _, cs_np = _wall_fraction_table()
     cs = jnp.asarray(cs_np, dtype=x.dtype)
@@ -537,8 +535,8 @@ def make_step(cfg: LegacyConfig, engine):
 
     def find_pot_temp(u):
         # floor P: inactive slots carry P=0 and an Inf operand in the pow
-        # would push the whole [slots]-wide transcendental onto the ~15x
-        # slower VPU path (active rows sit at ~1e2..1e5 Pa — unaffected)
+        # would put Inf/NaN into the whole [slots]-wide transcendental
+        # (active rows sit at ~1e2..1e5 Pa — unaffected)
         P = jnp.maximum(u.P, 1e-6)
         return {"theta": u.T * ((u.T * cfg.R_gas * cfg.rho0) / P)
                 ** (cfg.R_gas / cfg.cp)}
@@ -586,7 +584,7 @@ def make_step(cfg: LegacyConfig, engine):
         ker = rDwendland2(h0, r)
         dux = jnp.sum((p.v - q.v) * (p.x - q.x), axis=-1)
         # floors: inactive rows carry T=rho=0 and the masked-but-computed
-        # 0/0 NaN poisons the VPU fast path (and leaks through sums)
+        # 0/0 NaN would leak through the masked sums
         denom = (jnp.maximum(p.T, 1e-30) * jnp.maximum(p.rho, 1e-30)
                  * jnp.maximum(q.rho, 1e-30))
         dS = (-4.0 * p.m * q.m * ker * cfg.mu / denom
@@ -598,7 +596,7 @@ def make_step(cfg: LegacyConfig, engine):
         ker = q.m * rDwendland2(hker, r)
         x_pq = p.x - q.x
         # rho floors: inactive rows carry rho=0 and a 0/0 NaN operand
-        # would poison the VPU fast path (masked later, but computed)
+        # would be computed (masked later) and can leak through sums
         rho_p = jnp.maximum(p.rho, 1e-30)
         rho_q = jnp.maximum(q.rho, 1e-30)
         du = -(ker * (p.P / rho_p**2 + q.P / rho_q**2))[..., None] * x_pq
@@ -616,7 +614,7 @@ def make_step(cfg: LegacyConfig, engine):
             # fluid sliding over the static MOUNTAIN lattice always has
             # approaching floor pairs, so ungated AV is a no-slip floor
             # drag that decelerates the near-surface flow below U and
-            # kills the wave launch (TPU round 4: ungated α=0.05 measured
+            # kills the wave launch (round 4: ungated α=0.05 measured
             # flux −0.10·D_lin with u_avg 19.4 < U; the noise DID damp,
             # σ 2.6→0.4·D_lin — free-slip gating keeps that win).
             h_av = 0.5 * (p.h + q.h) if adaptive_h else h0
@@ -987,7 +985,7 @@ def wave_momentum_flux(cfg: LegacyConfig, z0: float, dz: float,
     integral while being immune to the lattice floor friction that
     dominates Σ m·Dv over the flat parts of the MOUNTAIN row (the sliding
     square lattice exerts a systematic streamwise "washboard" force ~650×
-    the linear signal at hₘ=300 m — TPU-measured round 3). In SPH the
+    the linear signal at hₘ=300 m — measured round 3). In SPH the
     band integral is Σ m·u′·w′ / dz over FLUID rows in the band.
 
     ``x_window``: restrict to |x| ≤ x_window. The wave's u′w′ is
@@ -1256,12 +1254,11 @@ def terrain_baseline_config(**kw) -> LegacyConfig:
     (``mountain_force``)."""
     kw.setdefault("n_rows", 228)
     # Rescatter cadence, not sweep width, bounds this config: the blocked
-    # flow sustains u_max ≈ 400 m/s (TPU-measured over 2000 steps), so the
-    # drift budget (cell−h)/2 sets how often the ~100 ms sort rescatter
-    # fires. TPU A/B (round 3, ms/step): lattice 2·dr cells (cap 8, budget
-    # 23 m) 23-24; skin=0.6 (cap 16, budget 123 m) 6.32; skin=1.0 (cap 24,
-    # budget 205 m → every ~64 steps) 4.02 — wider cells lose on sweep
-    # width but win ~6x on cadence. The ~2.9 ms sum-of-parts (rebuild 0.58
-    # + mass 0.74 + force 0.90 + unaries 0.61) is the cadence-free floor.
+    # flow sustains u_max ≈ 400 m/s (measured over 2000 steps), so the
+    # drift budget (cell−h)/2 sets how often the sort rescatter fires:
+    # lattice 2·dr cells (cap 8) leave a 23 m budget, skin=0.6 (cap 16)
+    # 123 m, skin=1.0 (cap 24) 205 m → a rescatter every ~64 steps. Wider
+    # cells cost sweep width but rescatter far less often; skin=1.0 was
+    # tuned before the move to the GPU and awaits measurement on the H100.
     kw.setdefault("skin", 1.0)
     return isothermal_flow_config(**kw)

@@ -278,7 +278,7 @@ def diagnostics(cfg: Config, state: ParticleState):
 def baseline_config(**overrides) -> Config:
     """BASELINE.json config #2 sizing: '2D Rayleigh-Bénard thermal
     convection, WCSPH + buoyancy, ~50k particles' (n_rows=160 → ~51k
-    fluid), in the production TPU layout (bucket-resident + Pallas fused
+    fluid), in the production layout (bucket-resident + Pallas fused
     continuity+conduction sweep)."""
     kw = dict(n_rows=160, dtype="float32", layout="bucket", skin=0.15,
               use_pallas=True)

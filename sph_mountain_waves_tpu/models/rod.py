@@ -99,10 +99,15 @@ def dev2(G):
 
 
 def mv(A, x):
-    # HIGHEST: TPU einsum defaults to bf16 MXU multiplies — the 2x2
-    # elasticity algebra needs full f32/f64 precision
+    # HIGHEST: a default-precision f32 product may run in reduced precision
+    # (TF32 on the GPU) — the 2x2 elasticity algebra needs full f32/f64
     return jnp.einsum("...ij,...j->...i", A, x,
                       precision=jax.lax.Precision.HIGHEST)
+
+
+def mm(A, B):
+    # batched 2x2 product at full precision (see mv)
+    return jnp.matmul(A, B, precision=jax.lax.Precision.HIGHEST)
 
 
 def make_system(cfg: Config) -> ParticleSystem:
@@ -130,12 +135,13 @@ def make_step(cfg: Config, engine):
 
     def find_B(u):
         Hi = inv2(u.H)
-        A = u.A @ Hi
+        A = mm(u.A, Hi)
         At = trans2(A)
-        G = At @ A
+        G = mm(At, A)
         P = cfg.c_l**2 * (det2(A) - 1.0)
         G0, _ = dev2(G)
-        B = m * (P[..., None, None] * inv2(At) + cfg.c_s**2 * (A @ G0)) @ Hi
+        B = mm(m * (P[..., None, None] * inv2(At) + cfg.c_s**2 * mm(A, G0)),
+               Hi)
         return {"A": A, "B": B}
 
     def find_f(p, q, r):
@@ -198,7 +204,7 @@ def particle_energy(cfg: Config, state: ParticleState):
     f = state.fields
     A = f["A"]
     d = jnp.abs(det2(A))
-    G = trans2(A) @ A
+    G = mm(trans2(A), A)
     G0, g33 = dev2(G)
     E_kin = 0.5 * cfg.m * jnp.sum(f["v"] ** 2, axis=-1)
     fro2 = jnp.sum(G0**2, axis=(-2, -1)) + g33**2

@@ -1,6 +1,6 @@
 """WCSPH mountain-wave scheme on perturbation variables.
 
-TPU-native rebuild of src/current/wcsph_perturbed_witch.jl: each particle
+JAX rebuild of src/current/wcsph_perturbed_witch.jl: each particle
 carries background+perturbation+total triplets for (ρ, P, θ, T); density by
 kernel summation with per-particle adaptive h; linear EOS on the perturbation
 P′ = c²ρ′; buoyancy −g ρ′/ρ; Rayleigh sponge; momentum = symmetric
@@ -37,6 +37,17 @@ FIELDS = {"h": 0, "x": 2, "m": 0, "v": 2, "Dv": 2,
           "T_bg": 0, "T_p": 0, "T": 0, "type": 0}
 
 
+def flagship_config(**overrides) -> WitchConfig:
+    """The flagship sizing: n_rows=246 → N ≈ 978k particles over the
+    400 km × 26 km domain, float32, bucket layout with lattice-aligned cells
+    (bucket cap 8, occupancy 4), lazy diagnostics."""
+    kw = dict(n_rows=246, dtype="float32", self_density=True,
+              layout="bucket", skin=0.15, lattice_cells=True,
+              lazy_diagnostics=True)
+    kw.update(overrides)
+    return WitchConfig(**kw)
+
+
 def make_system(cfg: WitchConfig) -> ParticleSystem:
     # Irreducible per-step state: the step recomputes rho/rho_p/rho_bg,
     # P*/T*/theta* after every rebuild before reading them, and Dv is zero
@@ -46,12 +57,39 @@ def make_system(cfg: WitchConfig) -> ParticleSystem:
         cfg, FIELDS, persistent=("x", "v", "h", "m", "type", "T_bg"))
 
 
+def compute_density(p, q, r):
+    """Binary action: ρ += q.m W(p.h, r)  (:226-228)."""
+    return {"rho": q.m * wendland2(p.h, r)}
+
+
+def momentum_action(cfg: WitchConfig):
+    """Binary action: symmetric P′ gradient + Monaghan artificial
+    viscosity (balance_of_momentum!, :261-286)."""
+    def balance_of_momentum(p, q, r):
+        x_pq = p.x - q.x
+        v_pq = p.v - q.v
+        dot_pq = jnp.sum(x_pq * v_pq, axis=-1)
+        h_ij = 0.5 * (p.h + q.h)
+        ker = rDwendland2(h_ij, r)
+        prho = jnp.maximum(p.rho, cfg.rho_floor)
+        qrho = jnp.maximum(q.rho, cfg.rho_floor)
+        dv = -(q.m * (p.P_p / prho**2 + q.P_p / qrho**2) * ker)[..., None] * x_pq
+
+        c_i = jnp.sqrt(jnp.maximum(cfg.gamma * p.P / prho, 0.0))
+        c_j = jnp.sqrt(jnp.maximum(cfg.gamma * q.P / qrho, 0.0))
+        c_ij = 0.5 * (c_i + c_j)
+        rho_ij = 0.5 * (prho + qrho)
+        mu_ij = (h_ij * dot_pq) / (r * r + cfg.eps * h_ij * h_ij)
+        pi_ij = (-cfg.alpha * c_ij * mu_ij + cfg.beta * mu_ij**2) / rho_ij
+        visc = jnp.where(dot_pq < 0.0, -q.m * pi_ij * ker, 0.0)
+        return {"Dv": dv + visc[..., None] * x_pq}
+
+    return balance_of_momentum
+
+
 def make_step(cfg: WitchConfig, engine):
     dt = cfg.dt
-
-    def compute_density(p, q, r):
-        # ρ += q.m W(p.h, r)  (:226-228)
-        return {"rho": q.m * wendland2(p.h, r)}
+    balance_of_momentum = momentum_action(cfg)
 
     def reset_density(u):
         return {"rho": jnp.zeros_like(u.rho), "rho_p": jnp.zeros_like(u.rho_p)}
@@ -81,26 +119,6 @@ def make_step(cfg: WitchConfig, engine):
         theta_bg = background_pot_temperature_j(cfg, u.x[:, 1])
         return {"theta": theta, "theta_bg": theta_bg,
                 "theta_p": theta - theta_bg}  # (:210-214)
-
-    def balance_of_momentum(p, q, r):
-        # symmetric P' gradient + Monaghan artificial viscosity (:261-286)
-        x_pq = p.x - q.x
-        v_pq = p.v - q.v
-        dot_pq = jnp.sum(x_pq * v_pq, axis=-1)
-        h_ij = 0.5 * (p.h + q.h)
-        ker = rDwendland2(h_ij, r)
-        prho = jnp.maximum(p.rho, cfg.rho_floor)
-        qrho = jnp.maximum(q.rho, cfg.rho_floor)
-        dv = -(q.m * (p.P_p / prho**2 + q.P_p / qrho**2) * ker)[..., None] * x_pq
-
-        c_i = jnp.sqrt(jnp.maximum(cfg.gamma * p.P / prho, 0.0))
-        c_j = jnp.sqrt(jnp.maximum(cfg.gamma * q.P / qrho, 0.0))
-        c_ij = 0.5 * (c_i + c_j)
-        rho_ij = 0.5 * (prho + qrho)
-        mu_ij = (h_ij * dot_pq) / (r * r + cfg.eps * h_ij * h_ij)
-        pi_ij = (-cfg.alpha * c_ij * mu_ij + cfg.beta * mu_ij**2) / rho_ij
-        visc = jnp.where(dot_pq < 0.0, -q.m * pi_ij * ker, 0.0)
-        return {"Dv": dv + visc[..., None] * x_pq}
 
     def move(u):
         fluid = (u.type == FLUID)[:, None]

@@ -68,7 +68,7 @@ class Witch3DConfig(WitchConfig):
 def stretch_config(**overrides) -> Witch3DConfig:
     """The BASELINE stretch sizing: 2M+ fluid particles (n_rows=40 ->
     dr=650 m over 400 km x 56 km x 26 km), float32, bucket layout + Pallas,
-    skin for deferred rescatters. Shard over 8 chips with
+    skin for deferred rescatters. Shard over several cards with
     parallel/bucket.py.
 
     lattice_cells sizes bucket cells to EXACTLY 2·dr (minus the 1e-6 edge
@@ -77,8 +77,7 @@ def stretch_config(**overrides) -> Witch3DConfig:
     — at skin 0.15 (cell = 2.07·dr) the ~7%/axis of cells that catch a
     3rd lattice plane produce occupancy 3^3 = 27 -> cap 40, i.e. ~5x the
     slot memory and ~2.7x the pair-sweep work of the aligned choice
-    (occ 8 -> cap 16). Measured on v5e: the misaligned 3.2M-particle
-    build OOMs; the aligned one runs. For provably-static runs,
+    (occ 8 -> cap 16). For provably-static runs,
     bucket_cap=8 (zero headroom, overflow surfaced) halves the sweep
     again."""
     kw = dict(n_rows=40, dtype="float32", self_density=True,

@@ -73,9 +73,9 @@ class WitchConfig:
     # rescatter until a particle drifts by skin·h/2
     layout: str = "flat"
     skin: float = 0.0
-    # use the fused Pallas pair kernels for the density/momentum sweeps
-    # (requires layout="bucket"; ~2x over the XLA cell-dense path by
-    # skipping empty bucket slots with dynamic trip counts)
+    # use the fused Pallas pair-sweep kernel for the density/momentum
+    # sweeps (requires layout="bucket"; skips empty bucket slots with
+    # dynamic trip counts; compiles for the GPU, interpret mode elsewhere)
     use_pallas: bool = False
     # T/θ are pure diagnostics — nothing in the dynamics reads them (momentum
     # uses P/P′/ρ only). The reference recomputes them every step
@@ -96,20 +96,13 @@ class WitchConfig:
     # mountain-wave flows, too tight for violent ones.
     lattice_cells: bool = False
     # Bucket-capacity override. None -> measured occupancy + ~25% headroom
-    # rounded to the 8-row VPU tile (NeighborEngine._estimate_cap). Every
-    # 8-row tile of cap multiplies the whole pair-sweep cost, so for runs
-    # whose occupancy provably never exceeds the initial lattice packing
-    # (static atmospheres), cap = exact occupancy halves the step when the
-    # estimate lands one tile higher. Overflow stays observable: rescatter
-    # drops are counted in Neighbors.overflow — watch it when using this.
+    # rounded to a multiple of 8 (NeighborEngine._estimate_cap). Every
+    # 8 slots of cap multiply the whole pair-sweep cost, so for runs whose
+    # occupancy provably never exceeds the initial lattice packing (static
+    # atmospheres), cap = exact occupancy halves the sweep when the
+    # estimate lands 8 higher. Overflow stays observable: rescatter drops
+    # are counted in Neighbors.overflow — watch it when using this.
     bucket_cap: int | None = None
-    # Approximate VPU reciprocals (pl.reciprocal(approx=True)) for the three
-    # divides in the Monaghan momentum body (1/h_ij, the mu_ij denominator,
-    # 1/rho_ij). The reference runs the whole pair loop under @fastmath
-    # (src/kernels.jl, src/current/*.jl) so this is within its own accuracy
-    # contract; gated at rtol 1e-3 vs the exact path in
-    # tests/test_trajectory_fidelity.py.
-    fast_math: bool = False
     # Exact checkpoint/resume (SURVEY §5; utils/checkpoint.py). With
     # checkpoint_every=k > 0 and an out_path, the run overwrites
     # <out_path>/checkpoint.npz every k frames (a resume point, not an

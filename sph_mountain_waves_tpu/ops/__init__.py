@@ -1,4 +1,4 @@
-"""Operator/runtime layer (L3): the TPU-native replacement for the
+"""Operator/runtime layer (L3): the JAX replacement for the
 reference's threaded cell-list + pairwise loops (src/core.jl)."""
 
 from .neighbors import NeighborEngine, Neighbors

@@ -86,9 +86,9 @@ def apply_unary(state: ParticleState, action, where=None, **params) -> ParticleS
             out[name] = jnp.where(m, val, old)
         updates = out
     # Zero every updated field on inactive rows. Inactive slots hold zeros;
-    # unary physics on them (0/0, pow(0,·), …) breeds NaN/Inf, and NaN/Inf
-    # operands drive TPU transcendentals onto a ~15x slower path — keeping
-    # dead rows at exactly 0 is both hygiene and a large perf win.
+    # unary physics on them (0/0, pow(0,·), …) breeds NaN/Inf, which a
+    # masked pair sum can still pick up (0·NaN = NaN) — keep dead rows at
+    # exactly 0.
     act = state.active
     updates = {name: jnp.where(
         act.reshape(act.shape + (1,) * (val.ndim - 1)), val, 0)

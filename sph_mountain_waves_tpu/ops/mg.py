@@ -4,7 +4,7 @@ The reference solves the projection system with plain (optionally ILU —
 commented out) preconditioned CG (sph_jl/examples/collapse_dry_implicit.jl:
 222-231). Jacobi-CG iteration counts grow with domain size (73 iterations at
 the 208k witch, round-3 measurement), because CG must propagate the global
-pressure mode across ~1000 cells one hop per iteration. The TPU-native cure
+pressure mode across ~1000 cells one hop per iteration. The cure here
 is a coarse-grid correction built on a structure the engine already has: the
 bucket cell grid.
 

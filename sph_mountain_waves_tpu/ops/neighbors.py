@@ -58,17 +58,17 @@ def sorted_slot_scatter(key, fields, C: int, cap: int, slots: int):
 
     The expensive random data movement is ONE variadic stable ``lax.sort``
     keyed on the flat cell key carrying every field component as a payload
-    (measured ~1 ms per payload at 2M slots vs ~28 ms for a random gather —
-    the sort network's movement is structured). The sorted rows then land in
-    their slots with one per-field scatter whose indices are near-monotonic
-    (sorted keys), replacing the gather+scatter pair of the naive move.
+    (the sort network's movement is structured, unlike a random gather).
+    The sorted rows then land in their slots with one per-field scatter
+    whose indices are near-monotonic (sorted keys), replacing the
+    gather+scatter pair of the naive move.
 
     Each field is scattered into its own whole output buffer — do NOT be
     tempted to batch the scatters through one column-stacked block: deriving
-    every output of a ``lax.cond`` branch from a single temp buffer was
-    measured to impose a ~2.2 ms/step tax on every NON-rescatter step of the
-    enclosing scan at 108k (XLA copy/buffer assignment around the
-    conditional), wiping out far more than the batching saves.
+    every output of a ``lax.cond`` branch from a single temp buffer made
+    XLA copy buffers around the conditional on every NON-rescatter step of
+    the enclosing scan (observed before the move to the GPU), costing far more than the batching
+    saves.
 
     ``key`` must equal C for rows to drop (inactive/out-of-domain); rows
     whose cell overflows ``cap`` are dropped and counted. Returns
@@ -110,19 +110,17 @@ def sorted_slot_scatter(key, fields, C: int, cap: int, slots: int):
     return moved, active, overflow
 
 
-# Stencil-compaction lowering dispatch (round 5, TPU-measured).  The
-# elementwise source-slot-loop placement is the DEFAULT: the einsum form
-# (a) runs the selection contraction on the MXU at precision=HIGHEST —
-# ~80 ms per rescatter even at an 11.7k-slot dam grid, 4.86 vs 0.90
-# ms/step on configs that rescatter every ~20 steps (scripts/r5_dam_ab)
-# — and (b) makes XLA materialize transposed [*grid, F, cap] operand
-# copies whose minor (F, cap) dims tile-pad ~13×: 3 × 2.62 GB HLO temps
-# at the 3.25M witch3d grid → HBM OOM.  The k-loop is bit-identical
-# (gated in test_neighbors) and VPU-only; its one cost is HLO size
+# Stencil-compaction lowering dispatch. The elementwise source-slot-loop
+# placement is the DEFAULT: the einsum form runs the selection as a
+# contraction at precision=HIGHEST and makes XLA materialize transposed
+# [*grid, F, cap] operand copies, which at the 3.25M witch3d grid do not
+# fit in device memory. The k-loop is bit-identical (gated in
+# test_neighbors) and purely elementwise; its one cost is HLO size
 # (~len(stencil)·cap elementwise ops), so ABOVE the unroll bound the
-# einsum is used where its padded temps fit (collapse3d: 27·40 = 1080
-# unroll but a tiny grid), and the k-loop is kept regardless when they
-# do not.
+# einsum is used where its temps fit (collapse3d: 27·40 = 1080 unroll
+# but a tiny grid), and the k-loop is kept regardless when they do not.
+# Both bounds were tuned before the move to the GPU and await
+# measurement on the H100.
 _COMPACT_KLOOP_MAX_UNROLL = 512
 _COMPACT_EINSUM_TEMP_MAX = 1536 * 2**20
 
@@ -164,7 +162,7 @@ class NeighborEngine:
     mins: tuple = ()      # domain box, per axis (containment screen)
     maxs: tuple = ()
     # pair-sweep implementation: "cell" = dense [ncells, cap, cap] blocks with
-    # pad+slice stencil shifts (zero gathers in the pair loop — the fast TPU
+    # pad+slice stencil shifts (zero gathers in the pair loop — the fast
     # path); "gather" = per-particle candidate gathers (reference-shaped,
     # kept for cross-checking)
     pair_mode: str = "cell"
@@ -211,9 +209,8 @@ class NeighborEngine:
     # that spawn under the bucket layout must set "sort" (the variadic
     # sort-payload move, valid for any row placement). The compaction is
     # vectorized (rank = cumsum over source slots, placement = one one-hot
-    # einsum per stencil offset — round 4; the earlier unrolled
-    # stencil·cap graph compiled >30 min past ~512), so compile cost is
-    # ~len(stencil) ops: 4.8 s CPU even at collapse3d's 27·40=1080.
+    # einsum per stencil offset; an unrolled stencil·cap graph compiles
+    # far longer past ~512), so compile cost is ~len(stencil) ops.
     # "stencil" still degrades to "sort" past _STENCIL_COST_MAX — beyond
     # it the [cap, cap, cells] one-hot temporaries start to dominate HBM
     # traffic and the sort move's fixed cost wins.
@@ -253,9 +250,10 @@ class NeighborEngine:
         phase = np.floor(mins / L).astype(np.int64)
         lims = (np.floor(maxs / L).astype(np.int64) - phase + 1)
         if layout == "bucket":
-            # round grid dims to TPU-tile-friendly multiples — XLA codegen
-            # for the pad/slice stencil shifts is highly shape-sensitive
-            # (observed 14x cliffs); extra cells stay empty and masked
+            # round grid dims to multiples of 128 (x) and 8 (y, z) — XLA
+            # codegen for the pad/slice stencil shifts is shape-sensitive;
+            # extra cells stay empty and masked. The multiples were tuned
+            # before the move to the GPU and await measurement on the H100.
             lims = lims.copy()
             lims[0] = -(-lims[0] // 128) * 128
             for a in range(1, dim):
@@ -314,14 +312,12 @@ class NeighborEngine:
             key = key + stride * ci[:, a]
             stride *= lims[a]
         occ = np.bincount(key).max()
-        # Headroom for compression during the run, rounded to the f32
-        # sublane tile (8): the VPU processes [8, 128] tiles, so a 12-row
-        # block costs exactly what a 16-row block does — only multiples of 8
-        # are meaningful cap values on TPU (Mosaic also rejects unaligned
-        # row slices in the Pallas pair kernels). Keep cap TIGHT: the
-        # bucket-layout state is cap·(C+1) rows, so every spare 8-row tile
-        # costs real time everywhere (measured 2.2x end-to-end at 1M going
-        # 16→8). Overflow is surfaced (Neighbors.overflow), not silent.
+        # Headroom for compression during the run, rounded up to a
+        # multiple of 8 (the pair-sweep kernel's p chunk; the rounding was
+        # tuned before the move to the GPU and awaits measurement on the
+        # H100). Keep cap TIGHT: the bucket-layout state is cap·(C+1) rows,
+        # so every spare slot row costs time everywhere. Overflow is surfaced
+        # (Neighbors.overflow), not silent.
         cap = int(occ) + max(1, int(occ) // 4)
         return -(-cap // 8) * 8
 
@@ -434,7 +430,7 @@ class NeighborEngine:
         candidates are the slots of cell c+o whose NEW key equals c; they
         are packed into c's slots in scan order via a one-hot rank match.
         All data movement is pad+slice stencil shifts and elementwise
-        selects — measured ~10-40x cheaper than the sort-payload move.
+        selects, far cheaper than the sort-payload move.
         Drops (cap overflow + any particle farther than one cell) are
         counted and surfaced. Returns (new_state, n_dropped)."""
         active, cell, key = self._screen_and_key(state)
@@ -490,9 +486,9 @@ class NeighborEngine:
                 for a in range(arr.shape[1]):
                     comps.append((n, a, pad1(gview(arr[:, a]), 0)))
 
-        # Vectorized packing (round 4; replaces an unrolled stencil·cap
-        # slot loop whose 216-step sequential `cnt` chain made XLA compile
-        # ~10x longer at flow caps — terrain cap 24 measured 1953 s).
+        # Vectorized packing (replaces an unrolled stencil·cap slot loop
+        # whose 216-step sequential `cnt` chain made XLA compile ~10x
+        # longer at flow caps).
         # Packing order is unchanged (offset-major, then source slot):
         # rank of source slot k in its destination cell = cells packed by
         # earlier offsets (cnt) + exclusive cumsum over k within this
@@ -510,10 +506,10 @@ class NeighborEngine:
             rank = cnt[None] + jnp.cumsum(mi, axis=0) - mi
             # One-hot placement, two bit-identical lowerings — see the
             # dispatch comment at _compact_use_einsum. The einsum branch
-            # needs precision=HIGHEST (TPU einsum defaults to bf16 MXU
-            # multiplies, which would round carried positions to ~8
-            # mantissa bits; the selection has ≤1 nonzero term per
-            # output, so f32 multiply is bit-exact).
+            # needs precision=HIGHEST (a default-precision f32 contraction
+            # may run in TF32 on the GPU, which would round carried
+            # positions to ~10 mantissa bits; the selection has ≤1 nonzero
+            # term per output, so an f32 multiply is bit-exact).
             if _compact_use_einsum(len(self.stencil), grid, len(comps),
                                    cap):
                 oh = ((iota_k[:, None] == rank[None])

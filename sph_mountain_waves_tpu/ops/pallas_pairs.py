@@ -1,121 +1,61 @@
-"""Pallas TPU pair-sweep kernels for the resident bucket layout (2-D + 3-D).
+"""Pallas pair-sweep kernel for the resident bucket layout (2-D + 3-D), on
+the GPU through the Triton route.
 
-The XLA cell-dense path evaluates every (slot_p, slot_q) pair of the dense
-cap×cap block. These kernels walk the q-slot axis with a **dynamic per-row
-trip count** (scalar-prefetched max occupancy over the row's stencil band),
-skipping empty slots entirely, and stream ``rp`` grid rows per program
-(rp ∈ {1, 2, 4}, auto-chosen to fill VMEM — wider [cap, rp·nx] blocks
-amortize VPU op-issue latency and cut program/DMA counts): the halo window
-of each field is DMA'd HBM→VMEM as 1 (2-D) / 3 (3-D) contiguous
-(rp+2)·nx-wide row spans — rows y−1..y+rp of one z-plane are adjacent in
-the flat row-major cell layout — and all 9/27 stencil offsets are slices
-of those spans.
+The XLA cell-dense path (ops/apply.py ``_binary_sums_resident``) evaluates
+every (slot_p, slot_q) pair of a dense ``[cap, cap, C]`` block per stencil
+offset and re-reads every field once per offset. This kernel instead walks
+the q-slot axis with a **dynamic per-row trip count** (the max occupancy
+over the row's stencil band, ``row_kmax``), skipping empty slots, and sums
+all 9 (2-D) / 27 (3-D) stencil contributions in registers before one store.
+
+Program layout: one program = one grid row (2-D: a y row; 3-D: a (y, z)
+row) × one x-tile of ``tx`` cells × one chunk of ``P_ROWS`` p-slots. The
+p block is ``[P_ROWS, tx]``; each q slot at each stencil offset is a
+``[tx]`` vector loaded straight from global memory with ``pl.ds`` (L1/L2
+serve the halo). Tiling the cap axis in chunks of 8 keeps caps that are not
+a power of two (terrain 24, collapse3d 40) free of padding waste.
 
 Layout contract (NeighborEngine layout="bucket"): a field is [cap, C+1] with
-C = nx·ny(·nz) flat row-major cells (slot = k·(C+1) + (z·ny+)y·nx + x); a row
-window with ±1-column halo is one contiguous span per row. Column overrun at
-row edges wraps into the neighboring row exactly like the reference's
-flat-key arithmetic (src/structs.jl:97-106) and is removed by the pair mask.
+C = nx·ny(·nz) flat row-major cells (slot = k·(C+1) + (z·ny+)y·nx + x). A
+q row outside the grid is clamped for the load and masked; column overrun
+at row edges wraps into the neighboring row exactly like the reference's
+flat-key arithmetic (src/structs.jl:97-106) and is removed by the distance
+cutoff.
 
 Masking discipline: bodies receive ``maskf`` (float 0/1) and MULTIPLY it into
-their contribution instead of select chains — cheaper on the VPU, and safe
-because every hoisted per-particle input is floored/flushed to keep empty
-rows finite (a NaN operand would poison the VPU transcendental fast path).
+their contribution instead of select chains, which is safe because every
+hoisted per-particle input is floored/flushed to keep empty rows finite
+(0·NaN would survive the multiply-mask).
 
 Used by the mountain-wave schemes (all five: wcsph/hopkins/full_hopkins/
-hopkins_total/pavelka) and the 3-D workloads when cfg.use_pallas=True;
-validated against the XLA path in tests (interpret mode on CPU, real kernels
-on TPU).
+hopkins_total/pavelka), the legacy terrain schemes, ISPH, Rayleigh-Bénard
+and the dam breaks when cfg.use_pallas=True; validated against the plain
+XLA sweep in tests (interpret mode on CPU) and on the card
+(``ops/kernel_parity.py``).
 """
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-
-try:  # TPU-only module; interpret mode works anywhere
-    from jax.experimental.pallas import tpu as pltpu
-except Exception:  # pragma: no cover
-    pltpu = None
+from jax.experimental.pallas import triton as pltriton
 
 __all__ = [
     "density_pass", "pressure_pass", "momentum_pass",
     "hopkins_momentum_pass", "pavelka_mass_pass",
     "pavelka_momentum_entropy_pass", "dambreak_mass_pass",
     "dambreak_force_pass", "legacy_mass_pass", "legacy_force_pass",
-    "row_kmax",
+    "row_kmax", "make_pair_kernel_fn",
 ]
 
-HALO = 128  # DMA slice starts must be 128-lane aligned on TPU
-
-# Rows-per-program override for experiments (None = auto heuristic).
-# Stacking RP adjacent grid rows into one program widens every VPU op from
-# [cap, nx] to [cap, RP·nx] (amortizing vector-op issue latency over more
-# tiles — the 3-D sweep at nx=384 is op-latency-bound), cuts the program
-# count RP×, and shrinks span-DMA overlap traffic ((RP+2)/RP rows fetched
-# per row computed instead of 3).
-ROWS_PER_PROGRAM = None
-
-_VMEM_SCRATCH_BUDGET = 12 * 2**20  # bytes; old windowed design ran at ~12 MB
-
-# Mosaic's scoped-VMEM (stack) budget for kernel temporaries is 16 MB and the
-# register-accumulated pair body keeps ~40 live [cap_pad, rp·nx] f32 vectors
-# per chain: stack grows ∝ cap_pad·rp·nx.  Measured on TPU v5e: rp=4 at the
-# 2-D 1M bench grid (cap_pad 8, nx≈2048 → 8·8192 cap·lanes) dies at compile
-# with "Ran out of memory in memory space vmem while allocating on stack"
-# (17.08 MB vs the 16 MB limit) → ≈261 B per cap·lane, while the 3-D stretch
-# grid (cap_pad 8, rp·nx ≤ 1536 → 3.2 MB) fits.  Model the stack as
-# 261·cap_pad·rp·nx bytes and budget 12 MB (margin for kernels with more
-# live vectors than the measured 2-D momentum body).  This is cap_pad-aware:
-# a high-cap 3-D grid like collapse3d (cap_pad 40, nx 384, rp=4 → 16.0 MB)
-# is rejected where a lanes-only cap would wave it through.  An explicit
-# ROWS_PER_PROGRAM override bypasses the check (for experiments).
-_STACK_BYTES_PER_CAP_LANE = 261  # 17.08 MB / (8 · 8192), measured
-_STACK_BUDGET = 12 * 2**20
-
-# Perf cutoff, separate from the OOM model: stacking amortizes VPU op-issue
-# latency, which only binds when programs are NARROW. Measured on v5e at
-# the 2-D 1M grid (nx=2048, cap 8): rp=1 → 4.64 ms/step, rp=2 (4096
-# lanes) → 5.64 ms/step — wide programs already fill the vector unit and
-# stacking just bloats the working set. The 3-D stretch grid (nx=384,
-# rp=4 → 1536 lanes) measures 96.3 → 69.6 ms/step. Crossover bracketed
-# in (1536, 4096]; stack only while rp·nx stays ≤ 2048 lanes.
-_MAX_STACK_LANES = 2048
-
-
-def _rows_per_program(engine, n_in, n_out, cap_pad):
-    """Largest rp ∈ {4, 2, 1} that divides the y-row count (programs must
-    not straddle z-planes: rp | ny keeps jz constant per program; in 2-D
-    R = ny), fits the double-buffered span scratch in VMEM, and keeps the
-    modeled kernel-stack footprint under Mosaic's scoped-VMEM budget."""
-    if ROWS_PER_PROGRAM is not None:
-        rp = int(ROWS_PER_PROGRAM)
-        candidates = [rp]
-    else:
-        candidates = [4, 2]
-    nx, ny = engine.lims[0], engine.lims[1]
-    nw = len(_plane_offsets(engine.dim))
-    for rp in candidates:
-        if ny % rp != 0:
-            continue
-        if ROWS_PER_PROGRAM is None and (
-                rp * nx > _MAX_STACK_LANES   # measured perf cutoff
-                or _STACK_BYTES_PER_CAP_LANE * cap_pad * rp * nx
-                > _STACK_BUDGET):            # Mosaic kernel-stack OOM
-            continue
-        W = (rp + 2) * nx + 2 * HALO
-        scratch = (nw * n_in * 2 * cap_pad * W
-                   + 3 * n_out * cap_pad * rp * nx) * 4
-        if scratch <= _VMEM_SCRATCH_BUDGET:
-            return rp
-    return 1
+P_ROWS = 8        # p slots per program: one chunk of the cap axis
+LANES = 128       # x-tile width on the card (a power of two; nx is ×128)
+NUM_WARPS = 4     # a [8, 128] f32 block is 8 elements per thread at 4 warps
+NUM_STAGES = 2    # software-pipeline depth of the q-slot loop
 
 
 def _grid_rows(engine):
-    """Number of kernel programs = grid rows: ny (2-D) or ny·nz (3-D)."""
+    """Number of grid rows: ny (2-D) or ny·nz (3-D)."""
     if engine.dim == 2:
         return engine.lims[1]
     return engine.lims[1] * engine.lims[2]
@@ -123,8 +63,8 @@ def _grid_rows(engine):
 
 def row_kmax(engine, state):
     """(band_max, row_max): per-grid-row max bucket occupancy maxed over the
-    stencil band (the q-slot trip bound) and for the row itself. Each [R]
-    int32 with R = ny (2-D) or ny·nz (3-D)."""
+    stencil band (the q-slot trip bound) and for the row itself (the p-chunk
+    bound). Each [R] int32 with R = ny (2-D) or ny·nz (3-D)."""
     C = engine.num_cells
     nx = engine.lims[0]
     R = _grid_rows(engine)
@@ -145,377 +85,110 @@ def row_kmax(engine, state):
     return band.astype(jnp.int32), per_row.astype(jnp.int32)
 
 
-def _pad_fields(engine, fields, pad_vals=None, tail_extra: int = 0):
-    """[cap, C+1] resident fields → [cap, (nx+HALO) + C + (nx+HALO)] with
-    nx+HALO leading pad columns and an nx+HALO−1 tail. A program's span
-    for grid row b covers flat columns [(b−1)·nx − HALO, (b+2)·nx + HALO):
-    3 adjacent rows plus the ±1-column halo, 128-aligned start (nx ≡ 0 mod
-    128 by the bucket-grid rounding). The pads absorb b = 0 and b = R−1 —
-    padded start (b·nx) is always ≥ 0 and the widest end lands exactly at
-    the padded width (the loaded pad garbage is occupancy-masked).
+def _tile_lanes(nx: int, interpret: bool) -> int:
+    """x-tile width: ``LANES`` on the card; in interpret mode the smallest
+    power of two covering the row, so the interpreter runs one program per
+    row and p-chunk (its cost is per program, not per lane)."""
+    if interpret:
+        return 1 << (nx - 1).bit_length()
+    return LANES
 
-    ``tail_extra``: extra tail pad for the x-TILED kernel, whose last
-    chunk of the last row reaches up to ncx·cx − nx + 1 columns past the
-    span design's widest access (partial chunks round the row width up to
-    ncx·cx).
 
-    ``pad_vals`` sets the pad value per field (default 0). Masked pad
+def _pad_fields(fields, pad_vals, cap_pad, tail):
+    """[cap, C+1] resident fields → [cap_pad, 1 + C+1 + tail]: one leading
+    column for the x = −1 neighbor of cell 0, ``tail`` columns for the
+    overhang of a last x-tile wider than the row, and zero rows up to the
+    8-aligned ``cap_pad`` (unoccupied, masked; never a q slot since the trip
+    bound is ≤ cap).
+
+    ``pad_vals`` sets the column pad value per field. Masked pad
     contributions must be EXACTLY zero, which needs every intermediate
     finite: a zero pad in a smoothing-length field flows through
     hinv = 1/0 = inf into ker = 0·inf = NaN (rdw(q.h) in the Hopkins
-    momentum), and NaN survives the multiply-mask — so h-like fields pad
+    momentum), and NaN survives the multiply-mask, so h-like fields pad
     with their floor, exactly like the in-grid empty slots they imitate."""
-    nx = engine.lims[0]
-    assert nx % 128 == 0, f"bucket grid nx must be 128-aligned, got {nx}"
-    if pad_vals is None:
-        pad_vals = [0.0] * len(fields)
-    return [jnp.pad(f, ((0, 0), (nx + HALO, nx + HALO - 1 + tail_extra)),
-                    constant_values=v)
-            for f, v in zip(fields, pad_vals)]
+    out = []
+    for f, v in zip(fields, pad_vals):
+        f = jnp.pad(f, ((0, 0), (1, tail)), constant_values=v)
+        out.append(jnp.pad(f, ((0, cap_pad - f.shape[0]), (0, 0))))
+    return out
 
 
-def _plane_offsets(dim):
-    """Row spans DMA'd per program: one 3-row y-span per stencil z-plane —
-    a single span in 2-D, planes dk ∈ {0,1,2} in 3-D."""
-    if dim == 2:
-        return [1]
-    return [0, 1, 2]
+def _make_pair_kernel(engine, n_in, n_out, pair_body, self_pair, tx, ncx):
+    """Build the kernel for one pair sweep.
 
-
-def _round_up_8(v: int) -> int:
-    return -(-v // 8) * 8
-
-
-def _make_pair_kernel(engine, n_in, n_out, pair_body, self_pair, cap, rp):
-    """Build a pallas kernel for one pair sweep.
-
-    pair_body(p_fields, q_fields, r2, maskf) -> list of [cap, rp·nx]
-    contribs, each already multiplied by maskf. p_fields[i] is [cap, rp·nx]
-    (rp stacked center rows), q_fields[i] is [rp·nx] (one q slot's stacked
-    rows, broadcastable). ``cap`` is the 8-aligned row count of the
-    (possibly padded) input buffers; ``rp`` grid rows are computed per
-    program (rp | ny, so a program never straddles a z-plane).
-    """
-    nx = engine.lims[0]
-    ny = engine.lims[1]
-    h_sys = engine.h
+    pair_body(p_fields, q_fields, r2, maskf) -> list of [P_ROWS, tx]
+    contribs, each already multiplied by maskf. p_fields[i] is
+    [P_ROWS, tx]; q_fields[i] is [tx] (one q slot at one stencil offset,
+    broadcastable as ``q[None, :]``). Field 0 is the occupancy plane."""
     dim = engine.dim
-    planes = _plane_offsets(dim)
-    nw = len(planes)
-    R = _grid_rows(engine)
-    nxr = rp * nx
-
-    def kernel(kmax_ref, kmaxp_ref, *refs):
-        in_refs = refs[:n_in]
-        out_refs = refs[n_in:n_in + n_out]
-        bufs = refs[n_in + n_out:n_in + n_out + nw * n_in]  # [fi*nw + w]
-        accs_ref = refs[n_in + n_out + nw * n_in:
-                        n_in + n_out + nw * n_in + n_out]
-        sems = refs[-1]
-        t = pl.program_id(0)
-        b0 = t * rp
-        if dim == 2:
-            jy = b0
-        else:
-            jy = b0 % ny
-            jz = b0 // ny
-
-        # Double-buffered row-span DMA: each buffer is [2, cap, W] with
-        # W = 3·nx + 2·HALO — rows y−1..y+1 of one z-plane are contiguous
-        # in the flat layout, so the 3/9 row windows of the old design are
-        # 1/3 spans (9x fewer DMA issues in 3-D, ~4x less VMEM scratch).
-        # Grid step t computes from slot t%2 (issued by step t-1) while
-        # issuing step t+1's spans into slot (t+1)%2 — the HBM streaming of
-        # the next row overlaps this row's VPU sweep. Grid rows execute
-        # sequentially on the core, so slot (t+1)%2 was last read at step
-        # t-1 and is free for reuse. Span for a program's first grid row b0
-        # = padded columns [b0·nx, b0·nx + W) with W = (rp+2)·nx + 2·HALO:
-        # with the nx+HALO leading pad this is flat
-        # [(b0−1)·nx − HALO, (b0+rp+1)·nx + HALO) — always in bounds, edge
-        # rows read pad/trash garbage that the occupancy mask removes. The
-        # z-plane row is CLAMPED at the z boundary: the whole span then
-        # maps to the wrong plane consistently, and rowvalid masks every
-        # contribution of that plane.
-        W = (rp + 2) * nx + 2 * HALO
-        cur = t % 2
-        nxt = (t + 1) % 2
-
-        def issue(tt, slot):
-            bb = tt * rp
-            if dim == 2:
-                jy2, jz2 = bb, None
-            else:
-                jy2 = bb % ny
-                jz2 = bb // ny
-            for fi in range(n_in):
-                for w, dk in enumerate(planes):
-                    row = jy2
-                    if dim == 3:
-                        rz = jnp.clip(jz2 + dk - 1, 0,
-                                      engine.lims[2] - 1)
-                        row = row + ny * rz
-                    start = pl.multiple_of(row * nx, 128)
-                    pltpu.make_async_copy(
-                        in_refs[fi].at[:, pl.ds(start, W)],
-                        bufs[fi * nw + w].at[slot],
-                        sems.at[slot, fi, w],
-                    ).start()
-
-        @pl.when(t == 0)
-        def _():
-            issue(t, cur)
-        @pl.when(t + 1 < R // rp)
-        def _():
-            issue(t + 1, nxt)
-        for fi in range(n_in):
-            for w in range(nw):
-                pltpu.make_async_copy(
-                    in_refs[fi].at[:, pl.ds(0, W)],  # shape-only handle
-                    bufs[fi * nw + w].at[cur],
-                    sems.at[cur, fi, w],
-                ).wait()
-
-        # p-side center rows: span rows 1..rp (the program's own rows).
-        # Buffer column of span row dj, cell x is dj·nx + x + HALO.
-        wc = planes.index(1)
-        p_all = [bufs[fi * nw + wc][cur, :, HALO + nx:HALO + nx + nxr]
-                 for fi in range(n_in)]
-
-        kmax = kmax_ref[t]
-        row_ids = jax.lax.broadcasted_iota(jnp.int32, (cap, nxr), 0)
-        if rp > 1:
-            # stacked-column index: sub-row s covers cols [s·nx, (s+1)·nx),
-            # so per-sub-row q-row validity (jy+s+dj−1 ∈ [0, ny)) is two
-            # comparisons of col against nx-multiple thresholds — no
-            # integer division, no captured constants
-            col = jax.lax.broadcasted_iota(jnp.int32, (1, nxr), 1)
-        for oi in range(n_out):
-            accs_ref[oi][:, :] = jnp.zeros((cap, nxr), jnp.float32)
-
-        # static unroll over q slots, runtime-predicated on the stencil
-        # band's occupancy: empty slots are skipped entirely. (Chunking the
-        # p axis under a second pl.when was measured 2x SLOWER — nested
-        # predication defeats Mosaic scheduling. One chunk.)
-        #
-        # The 9 (2-D) / 27 (3-D) stencil contributions of one q slot are
-        # summed in REGISTERS and the VMEM accumulator is touched once per
-        # slot: each pair-body is one long dependency chain (~40 dependent
-        # vector ops), and chaining them through a VMEM `+=` serializes the
-        # whole sweep on op latency (measured F ≈ 126 ns/iteration at
-        # [8,256] blocks, ~6x the ALU cost). Reassociating the sum gives
-        # Mosaic 9/27 independent chains to interleave per slot.
-        for kq in range(cap):
-            @pl.when(kq < kmax)
-            def _(kq=kq):
-                tot = [None] * n_out
-                for w, dk in enumerate(planes):
-                    planevalid = True
-                    if dim == 3:
-                        planevalid = jnp.logical_and(
-                            jz + dk - 1 >= 0, jz + dk - 1 < engine.lims[2])
-                    for dj in range(3):
-                        if rp == 1:
-                            rowvalid = jnp.logical_and(jy + dj - 1 >= 0,
-                                                       jy + dj - 1 < ny)
-                        else:
-                            # per-column: sub-row s's q row is jy+s+dj−1;
-                            # valid ⟺ col ∈ [(1−dj−jy)·nx, (ny−jy−dj+1)·nx)
-                            rowvalid = ((col >= (1 - dj - jy) * nx)
-                                        & (col < (ny - jy - dj + 1) * nx))
-                        if dim == 3:
-                            rowvalid = jnp.logical_and(rowvalid, planevalid)
-                        for di in range(3):
-                            base = HALO + dj * nx - 1 + di
-                            q_all = [bufs[fi * nw + w][cur, kq,
-                                                       base:base + nxr]
-                                     for fi in range(n_in)]
-                            occ_q = (q_all[0] > 0.5)[None, :] & rowvalid
-                            r2 = (p_all[1] - q_all[1][None, :]) ** 2
-                            for a in range(2, 1 + dim):
-                                r2 = r2 + (p_all[a] - q_all[a][None, :]) ** 2
-                            mask = ((p_all[0] > 0.5) & occ_q
-                                    & (r2 <= h_sys * h_sys))
-                            if w == wc and dj == 1 and di == 1 \
-                                    and not self_pair:
-                                mask = mask & (row_ids != kq)
-                            maskf = mask.astype(jnp.float32)
-                            contribs = pair_body(p_all, q_all, r2, maskf)
-                            for oi in range(n_out):
-                                tot[oi] = (contribs[oi] if tot[oi] is None
-                                           else tot[oi] + contribs[oi])
-                for oi in range(n_out):
-                    accs_ref[oi][:, :] += tot[oi]
-
-        for oi in range(n_out):
-            out_refs[oi][:, :] = accs_ref[oi][:, :]
-
-    return kernel
-
-
-# x-tiling override for experiments/tests: None = auto (tile only when the
-# modeled kernel stack overflows), 0 = never tile, >0 = force that chunk
-# width (lanes, multiple of 128) on any 2-D grid.
-CHUNK_LANES = None
-
-
-def _chunk_lanes(engine, cap_pad):
-    """x-tiling decision (round 5 — the "~2M VMEM cliff" lever named by
-    the round-4 autopsy, BENCHMARKS.md): once nx is wide enough that the
-    modeled Mosaic kernel stack (261 B/cap·lane — the pair body keeps ~40
-    live [cap_pad, lanes] f32 vectors) overflows the scoped-VMEM budget
-    even at rp = 1, the merged-span kernel loses double-buffering headroom
-    and HBM latency shows (measured onset: nx 5376 → 6400 at cap 8,
-    2.08e8 → 1.37e8 particle-steps/s). Instead of running the whole row
-    as one program, tile it into column CHUNKS of ``cx`` lanes (each with
-    a ±1-cell halo window per stencil row): every program then works a
-    proven-good [cap_pad, ≤2048]-lane block regardless of nx.
-
-    Returns the chunk width (lanes, multiple of 128) or None for the
-    untiled fast path. 2-D only — 3-D grids are narrow by construction
-    (the y/z extent carries the cells; witch3d nx is one 128 quantum)."""
-    nx = engine.lims[0]
-    if engine.dim != 2:
-        return None
-    if CHUNK_LANES is not None:
-        cl = int(CHUNK_LANES)
-        return None if cl == 0 or cl >= nx else cl
-    if _STACK_BYTES_PER_CAP_LANE * cap_pad * nx <= _STACK_BUDGET:
-        return None                      # the span design fits — keep it
-    max_cx = _STACK_BUDGET // (_STACK_BYTES_PER_CAP_LANE * cap_pad)
-    cx = min(2048, (max_cx // 128) * 128)  # 2048 = the 1M config's width
-    return max(cx, 128)
-
-
-def chunk_kmax(engine, state, cx: int, ncx: int):
-    """Per-CHUNK q-slot trip bounds for the x-tiled kernel — the tiled
-    analogue of ``row_kmax``, and strictly tighter: each program bounds
-    its trips by the max occupancy over ITS OWN column window's stencil
-    band (3 rows × [c·cx − 1, (c+1)·cx + 1)), so a dense pocket in one
-    chunk no longer sets the trip count of the whole row. [R·ncx] int32,
-    program-major (row, then chunk)."""
-    C = engine.num_cells
     nx, ny = engine.lims[0], engine.lims[1]
-    occ = engine.resident(state.active)[:, :C]
-    per_cell = jnp.sum(occ, axis=0).reshape(ny, nx)
-    rows = jnp.pad(per_cell, ((1, 1), (0, 0)))
-    band = jnp.maximum(jnp.maximum(rows[:-2], rows[1:-1]), rows[2:])
-    padw = ncx * cx - nx
-
-    def windowed_max(g):
-        body = jnp.pad(g, ((0, 0), (0, padw)))
-        left = jnp.pad(g, ((0, 0), (1, padw)))[:, :ncx * cx]
-        right = jnp.pad(g, ((0, 0), (0, padw + 1)))[:, 1:]
-        m = jnp.maximum(body, jnp.maximum(left, right))
-        return m.reshape(ny, ncx, cx).max(axis=2).reshape(-1)
-
-    return (windowed_max(band).astype(jnp.int32),
-            windowed_max(per_cell).astype(jnp.int32))
-
-
-def _make_pair_kernel_tiled(engine, n_in, n_out, pair_body, self_pair,
-                            cap, cx, ncx):
-    """x-TILED pair-sweep kernel: one program = one [cap, cx] column chunk
-    of one grid row (2-D only, rp = 1). Each of the 3 stencil rows is
-    DMA'd as its own [cap, cx + 2·HALO] halo window (the merged 3-row
-    span of `_make_pair_kernel` is contiguous only for FULL rows), double-
-    buffered across programs exactly like the span design. Partial last
-    chunks (ncx·cx > nx) compute wrap garbage in their overhang columns;
-    the caller slices the output back to nx.  Body/masking semantics are
-    identical to `_make_pair_kernel` at rp = 1."""
-    nx = engine.lims[0]
-    ny = engine.lims[1]
-    h_sys = engine.h
-    assert engine.dim == 2, "x-tiling is 2-D only"
-    T = ny * ncx
-    W = cx + 2 * HALO
+    nz = engine.lims[2] if dim == 3 else 1
+    h2 = engine.h * engine.h
+    planes = (-1, 0, 1) if dim == 3 else (0,)
+    out_w = ncx * tx    # output columns per grid row
 
     def kernel(kmax_ref, kmaxp_ref, *refs):
-        in_refs = refs[:n_in]
-        out_refs = refs[n_in:n_in + n_out]
-        bufs = refs[n_in + n_out:n_in + n_out + 3 * n_in]  # [fi*3 + dj]
-        accs_ref = refs[n_in + n_out + 3 * n_in:
-                        n_in + n_out + 3 * n_in + n_out]
-        sems = refs[-1]
-        t = pl.program_id(0)
-        jy = t // ncx
-        cur = t % 2
-        nxt = (t + 1) % 2
+        in_refs, out_refs = refs[:n_in], refs[n_in:]
+        row = pl.program_id(0)
+        x0 = pl.program_id(1) * tx
+        p0 = pl.program_id(2) * P_ROWS
+        jy, jz = (row, 0) if dim == 2 else (row % ny, row // ny)
 
-        def issue(tt, slot):
-            bb = tt // ncx
-            cc = tt % ncx
-            for fi in range(n_in):
-                for dj in range(3):
-                    # padded flat start of stencil row bb+dj−1's window
-                    # [cc·cx − HALO, cc·cx + cx + HALO): leading pad is
-                    # nx + HALO, so start = (bb+dj)·nx + cc·cx — 128-
-                    # aligned (nx, cx, HALO all ≡ 0 mod 128)
-                    start = pl.multiple_of((bb + dj) * nx + cc * cx, 128)
-                    pltpu.make_async_copy(
-                        in_refs[fi].at[:, pl.ds(start, W)],
-                        bufs[fi * 3 + dj].at[slot],
-                        sems.at[slot, fi, dj],
-                    ).start()
+        # +1: the leading pad column of _pad_fields
+        pstart = 1 + row * nx + x0
+        p_all = [r[pl.ds(p0, P_ROWS), pl.ds(pstart, tx)] for r in in_refs]
+        occ_p = p_all[0] > 0.5
+        # a chunk past the row's occupancy has no p particle: zero trips
+        trip = jnp.where(p0 < kmaxp_ref[row], kmax_ref[row], 0)
+        slot_ids = p0 + jax.lax.broadcasted_iota(jnp.int32, (P_ROWS, tx), 0)
 
-        @pl.when(t == 0)
-        def _():
-            issue(t, cur)
+        # per-offset q start column and row validity (loop invariant). An
+        # out-of-grid q row is clamped for the load and masked by `valid`.
+        offsets = []
+        for dk in planes:
+            qz = jz + dk
+            for dj in (-1, 0, 1):
+                qy = jy + dj
+                valid = (qy >= 0) & (qy < ny)
+                qrow = jnp.clip(qy, 0, ny - 1)
+                if dim == 3:
+                    valid = valid & (qz >= 0) & (qz < nz)
+                    qrow = qrow + ny * jnp.clip(qz, 0, nz - 1)
+                for di in (-1, 0, 1):
+                    center = dk == 0 and dj == 0 and di == 0
+                    offsets.append((1 + qrow * nx + x0 + di, valid, center))
 
-        @pl.when(t + 1 < T)
-        def _():
-            issue(t + 1, nxt)
-        for fi in range(n_in):
-            for dj in range(3):
-                pltpu.make_async_copy(
-                    in_refs[fi].at[:, pl.ds(0, W)],  # shape-only handle
-                    bufs[fi * 3 + dj].at[cur],
-                    sems.at[cur, fi, dj],
-                ).wait()
+        def q_slot(kq, accs):
+            tot = [None] * n_out
+            for start, valid, center in offsets:
+                q_all = [r[kq, pl.ds(start, tx)] for r in in_refs]
+                r2 = (p_all[1] - q_all[1][None, :]) ** 2
+                for a in range(2, 1 + dim):
+                    r2 = r2 + (p_all[a] - q_all[a][None, :]) ** 2
+                mask = (occ_p & (q_all[0] > 0.5)[None, :] & valid
+                        & (r2 <= h2))
+                if center and not self_pair:
+                    mask = mask & (slot_ids != kq)
+                contribs = pair_body(p_all, q_all, r2,
+                                     mask.astype(jnp.float32))
+                tot = [c if t is None else t + c
+                       for t, c in zip(tot, contribs)]
+            # the 9/27 stencil terms of one slot form independent chains;
+            # the carry is touched once per slot
+            return tuple(a + t for a, t in zip(accs, tot))
 
-        p_all = [bufs[fi * 3 + 1][cur, :, HALO:HALO + cx]
-                 for fi in range(n_in)]
-        kmax = kmax_ref[t]
-        row_ids = jax.lax.broadcasted_iota(jnp.int32, (cap, cx), 0)
-        for oi in range(n_out):
-            accs_ref[oi][:, :] = jnp.zeros((cap, cx), jnp.float32)
-
-        # q-slot walk: identical discipline to the span kernel — static
-        # unroll, per-chunk occupancy predication, register-accumulated
-        # stencil sums with ONE VMEM += per slot
-        for kq in range(cap):
-            @pl.when(kq < kmax)
-            def _(kq=kq):
-                tot = [None] * n_out
-                for dj in range(3):
-                    rowvalid = jnp.logical_and(jy + dj - 1 >= 0,
-                                               jy + dj - 1 < ny)
-                    for di in range(3):
-                        base = HALO - 1 + di
-                        q_all = [bufs[fi * 3 + dj][cur, kq, base:base + cx]
-                                 for fi in range(n_in)]
-                        occ_q = (q_all[0] > 0.5)[None, :] & rowvalid
-                        r2 = (p_all[1] - q_all[1][None, :]) ** 2
-                        r2 = r2 + (p_all[2] - q_all[2][None, :]) ** 2
-                        mask = ((p_all[0] > 0.5) & occ_q
-                                & (r2 <= h_sys * h_sys))
-                        if dj == 1 and di == 1 and not self_pair:
-                            mask = mask & (row_ids != kq)
-                        maskf = mask.astype(jnp.float32)
-                        contribs = pair_body(p_all, q_all, r2, maskf)
-                        for oi in range(n_out):
-                            tot[oi] = (contribs[oi] if tot[oi] is None
-                                       else tot[oi] + contribs[oi])
-                for oi in range(n_out):
-                    accs_ref[oi][:, :] += tot[oi]
-
-        for oi in range(n_out):
-            out_refs[oi][:, :] = accs_ref[oi][:, :]
+        zeros = jnp.zeros((P_ROWS, tx), jnp.float32)
+        accs = jax.lax.fori_loop(0, trip, q_slot, (zeros,) * n_out)
+        for o, a in zip(out_refs, accs):
+            o[pl.ds(p0, P_ROWS), pl.ds(row * out_w + x0, tx)] = a
 
     return kernel
 
 
 def make_pair_kernel_fn(engine, state, static_fields, n_dyn, pair_body,
-                        n_out, self_pair, interpret=False, pad_vals=None):
+                        n_out, self_pair, interpret=False, pad_vals=None,
+                        tx=None):
     """Prepare a pair-sweep kernel with a static/dynamic field split and
     return ``call(dyn_fields) -> outs``. The occupancy plane, the padded
     STATIC field buffers and the per-row trip bounds (row_kmax) are built
@@ -524,106 +197,56 @@ def make_pair_kernel_fn(engine, state, static_fields, n_dyn, pair_body,
     (e.g. the per-CG-iteration matvec inside ``lax.while_loop``) this
     keeps the invariant pad/reshape work out of the loop body by
     construction instead of relying on XLA loop-invariant code motion.
-    ``pair_body`` sees fields indexed [occ] + static + dynamic."""
-    if not interpret and jax.default_backend() == "cpu":
-        # Mosaic kernels only compile for TPU; on the CPU backend
-        # (tests, jobs run off-TPU) fall back to interpret mode so
-        # use_pallas configs stay runnable everywhere
-        interpret = True
+    ``pair_body`` sees fields indexed [occ] + static + dynamic.
+
+    The kernel compiles for the GPU only; ``interpret=True`` runs it in
+    the Pallas interpreter on any backend (the CPU tests). ``tx`` overrides
+    the x-tile width (a power of two)."""
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the Pallas pair-sweep kernel compiles for the GPU only "
+            f"(backend is {jax.default_backend()!r}); use the XLA path "
+            "(use_pallas=False) or interpret=True")
     nx = engine.lims[0]
     cap = engine.cap
     C = engine.num_cells
     R = _grid_rows(engine)
-    occf = engine.resident(state.active).astype(jnp.float32)
     n_static = len(static_fields)
-    pad_static = pad_dyn = None
-    if pad_vals is not None:
-        assert len(pad_vals) == n_static + n_dyn, \
-            f"pad_vals has {len(pad_vals)} entries for {n_static + n_dyn} fields"
-        pad_static = [0.0] + list(pad_vals[:n_static])  # occ pads 0
-        pad_dyn = list(pad_vals[n_static:])
+    if pad_vals is None:
+        pad_vals = [0.0] * (n_static + n_dyn)
+    assert len(pad_vals) == n_static + n_dyn, \
+        f"pad_vals has {len(pad_vals)} entries for {n_static + n_dyn} fields"
+    pad_static = [0.0] + list(pad_vals[:n_static])  # occupancy pads 0
+    pad_dyn = list(pad_vals[n_static:])
     n_in = 1 + n_static + n_dyn
-    nw = len(_plane_offsets(engine.dim))
 
-    # Mosaic requires memref row counts aligned to the f32 sublane tile (8):
-    # pad the cap axis with zero (= unoccupied, masked) rows and slice the
-    # outputs back. A [cap, nx] VPU block costs the same as its 8-row
-    # rounding anyway, so the padding is free compute-wise.
-    cap_pad = _round_up_8(cap)
-
-    cx = _chunk_lanes(engine, cap_pad)
-    ncx = 1 if cx is None else -(-nx // cx)
-    tail_extra = 0 if cx is None else ncx * cx - nx + 1
-    ins_static = _pad_fields(engine, [occf] + list(static_fields),
-                             pad_static, tail_extra=tail_extra)
-    if cap_pad != cap:
-        ins_static = [jnp.pad(f, ((0, cap_pad - cap), (0, 0)))
-                      for f in ins_static]
-
-    if cx is not None:
-        # wide-grid x-tiled path (the ~2M VMEM cliff lever): [cap, cx]
-        # column-chunk programs with per-chunk trip bounds
-        kmax, kmaxp = chunk_kmax(engine, state, cx, ncx)
-        kernel = _make_pair_kernel_tiled(engine, n_in, n_out, pair_body,
-                                         self_pair, cap_pad, cx, ncx)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(R * ncx,),
-            in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * n_in,
-            out_specs=[pl.BlockSpec((cap_pad, cx),
-                                    lambda t, kmax, kmaxp: (0, t),
-                                    memory_space=pltpu.VMEM)] * n_out,
-            scratch_shapes=[pltpu.VMEM((2, cap_pad, cx + 2 * HALO),
-                                       jnp.float32)
-                            for _ in range(3 * n_in)]
-            + [pltpu.VMEM((cap_pad, cx), jnp.float32)
-               for _ in range(n_out)]
-            + [pltpu.SemaphoreType.DMA((2, n_in, 3))],
-        )
-    else:
-        kmax, kmaxp = row_kmax(engine, state)
-        rp = _rows_per_program(engine, n_in, n_out, cap_pad)
-        if rp > 1:
-            # a program's q-slot trip bound is the max over its rp rows'
-            # bands
-            kmax = kmax.reshape(R // rp, rp).max(axis=1)
-            kmaxp = kmaxp.reshape(R // rp, rp).max(axis=1)
-        kernel = _make_pair_kernel(engine, n_in, n_out, pair_body,
-                                   self_pair, cap_pad, rp)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(R // rp,),
-            in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * n_in,
-            out_specs=[pl.BlockSpec((cap_pad, rp * nx),
-                                    lambda t, kmax, kmaxp: (0, t),
-                                    memory_space=pltpu.VMEM)] * n_out,
-            scratch_shapes=[pltpu.VMEM((2, cap_pad,
-                                        (rp + 2) * nx + 2 * HALO),
-                                       jnp.float32)
-                            for _ in range(nw * n_in)]
-            + [pltpu.VMEM((cap_pad, rp * nx), jnp.float32)
-               for _ in range(n_out)]
-            + [pltpu.SemaphoreType.DMA((2, n_in, nw))],
-        )
+    tx = tx or _tile_lanes(nx, interpret)
+    assert tx & (tx - 1) == 0, f"x-tile width must be a power of two: {tx}"
+    ncx = -(-nx // tx)
+    tail = ncx * tx - nx   # last tile's overhang past the row
+    cap_pad = -(-cap // P_ROWS) * P_ROWS
+    occf = engine.resident(state.active).astype(jnp.float32)
+    ins_static = _pad_fields([occf] + list(static_fields), pad_static,
+                             cap_pad, tail)
+    kmax, kmaxp = row_kmax(engine, state)
+    kernel = _make_pair_kernel(engine, n_in, n_out, pair_body, self_pair,
+                               tx, ncx)
 
     def call(dyn_fields):
         assert len(dyn_fields) == n_dyn
-        ins_dyn = _pad_fields(engine, list(dyn_fields), pad_dyn,
-                              tail_extra=tail_extra)
-        if cap_pad != cap:
-            ins_dyn = [jnp.pad(f, ((0, cap_pad - cap), (0, 0)))
-                       for f in ins_dyn]
-        out_w = R * nx if cx is None else R * ncx * cx
+        ins_dyn = _pad_fields(list(dyn_fields), pad_dyn, cap_pad, tail)
         outs = pl.pallas_call(
             kernel,
-            grid_spec=grid_spec,
-            out_shape=[jax.ShapeDtypeStruct((cap_pad, out_w),
+            grid=(R, ncx, cap_pad // P_ROWS),
+            out_shape=[jax.ShapeDtypeStruct((cap_pad, R * ncx * tx),
                                             jnp.float32)] * n_out,
+            compiler_params=pltriton.CompilerParams(
+                num_warps=NUM_WARPS, num_stages=NUM_STAGES),
             interpret=interpret,
+            name="pair_sweep",
         )(kmax, kmaxp, *ins_static, *ins_dyn)
-        if cx is not None:
-            # drop the partial-chunk overhang columns (wrap garbage)
-            outs = [o[:cap].reshape(cap, R, ncx * cx)[:, :, :nx]
+        if tail:   # drop the overhang columns of partial last tiles
+            outs = [o[:cap].reshape(cap, R, ncx * tx)[:, :, :nx]
                     .reshape(cap, C) for o in outs]
         else:
             outs = [o[:cap] for o in outs]
@@ -677,7 +300,7 @@ def weighted_w_pass(engine, state, cfg, weight, ker_h: str = "p",
     f = state.fields
     if ker_h == "p":
         # stream 1/h instead of h: the kernel value becomes divide-free
-        # (w = C·pos(1-r·hinv)^4·(1+4·r·hinv)·hinv^dim), saving 2 VPU
+        # (w = C·pos(1-r·hinv)^4·(1+4·r·hinv)·hinv^dim), saving 2
         # divides per pair element vs wfun(h, r)
         hinvB = engine.resident(1.0 / jnp.maximum(f["h"], _hfloor(engine)))
         coords = [engine.resident(f["x"][:, a]) for a in range(d)]
@@ -686,7 +309,7 @@ def weighted_w_pass(engine, state, cfg, weight, ker_h: str = "p",
         coords, hB = _resident_xhm(engine, state, _hfloor(engine))
         fields_h = coords + [hB]
     wB = engine.resident(weight)
-    # edge-row spans read pad columns: h pads with its floor (a zero h
+    # edge cells read pad columns: h pads with its floor (a zero h
     # NaN-poisons via 1/h — see _pad_fields), everything else with 0
     pad_vals = ([0.0] * d + [0.0 if ker_h == "p" else _hfloor(engine)]
                 + [0.0])
@@ -735,19 +358,6 @@ def _rdw_const(dim):
     return -44.563384065730695 if dim == 2 else -66.84507609859604
 
 
-def _div_fn(cfg, interpret):
-    """Division for pair bodies. Default: the exact VPU divide. With
-    cfg.fast_math: multiply by the approximate-reciprocal instruction
-    (pl.reciprocal(approx=True)). Interpret mode evaluates the approx
-    reciprocal exactly, so CPU gates check the wiring at f32-roundoff
-    tolerance (the residual is one extra rounding of multiply-by-inverse);
-    the hardware-approximation error is measured on-device (BENCHMARKS.md)."""
-    del interpret
-    if getattr(cfg, "fast_math", False):
-        return lambda a, b: a * pl.reciprocal(b, approx=True)
-    return lambda a, b: a / b
-
-
 def momentum_pass(engine, state, cfg, interpret=False):
     """Perturbation-pressure + Monaghan-viscosity momentum sweep
     (balance_of_momentum!, wcsph_perturbed_witch.jl:261-286; identical form
@@ -768,7 +378,6 @@ def momentum_pass(engine, state, cfg, interpret=False):
         (f["m"],) + tuple(f["v"][:, a] for a in range(d))
         + (rho_f, Aterm, cs))]
     DW = _rdw_const(d)
-    div = _div_fn(cfg, interpret)
 
     def body(p_all, q_all, r2, maskf):
         hp = p_all[1 + d]
@@ -778,7 +387,7 @@ def momentum_pass(engine, state, cfg, interpret=False):
 
         r = jnp.sqrt(r2)
         h_ij = 0.5 * (hp + q_all[1 + d][None, :])
-        hinv = div(1.0, h_ij)
+        hinv = 1.0 / h_ij
         t = jnp.maximum(1.0 - r * hinv, 0.0) * maskf
         hinv2 = hinv * hinv
         ker = DW * t * t * t * (hinv2 * hinv2 if d == 2
@@ -790,8 +399,8 @@ def momentum_pass(engine, state, cfg, interpret=False):
 
         c_ij = 0.5 * (cp + cq)
         rho_ij = 0.5 * (rhop + rhoq)
-        mu_ij = div(h_ij * dot, r2 + eps * h_ij * h_ij)
-        pi_ij = div(-alpha * c_ij * mu_ij + beta * mu_ij * mu_ij, rho_ij)
+        mu_ij = h_ij * dot / (r2 + eps * h_ij * h_ij)
+        pi_ij = (-alpha * c_ij * mu_ij + beta * mu_ij * mu_ij) / rho_ij
         # fold pressure + viscosity into one -mq·ker·(...) product
         s = -mq * ker * (Ap + Aq
                          + (dot < 0.0).astype(jnp.float32) * pi_ij)
@@ -831,7 +440,6 @@ def hopkins_momentum_pass(engine, state, cfg, background_split: bool,
     fields = coords + [hB] + [engine.resident(a) for a in hoisted]
     DW = _rdw_const(d)
     b0 = 2 + d  # index of first hoisted field (after occ, coords, h)
-    div = _div_fn(cfg, interpret)
 
     def body(p_all, q_all, r2, maskf):
         hp = p_all[1 + d]
@@ -845,7 +453,7 @@ def hopkins_momentum_pass(engine, state, cfg, background_split: bool,
         r = jnp.sqrt(r2)
 
         def rdw(h):
-            hinv = div(1.0, h)
+            hinv = 1.0 / h
             t = jnp.maximum(1.0 - r * hinv, 0.0) * maskf
             hinv2 = hinv * hinv
             return DW * t * t * t * (hinv2 * hinv2 if d == 2
@@ -866,8 +474,8 @@ def hopkins_momentum_pass(engine, state, cfg, background_split: bool,
         ker = rdw(h_ij)
         c_ij = 0.5 * (cp + cq)
         rho_ij = 0.5 * (rhop + rhoq)
-        mu_ij = div(h_ij * dot, r2 + eps * h_ij * h_ij)
-        pi_ij = div(-alpha * c_ij * mu_ij + beta * mu_ij * mu_ij, rho_ij)
+        mu_ij = h_ij * dot / (r2 + eps * h_ij * h_ij)
+        pi_ij = (-alpha * c_ij * mu_ij + beta * mu_ij * mu_ij) / rho_ij
         visc = (dot < 0.0).astype(jnp.float32) * (-mq) * pi_ij * ker
         s = s + visc
         return [s * dx[a] for a in range(d)]
@@ -975,7 +583,7 @@ def legacy_force_pass(engine, state, cfg, interpret=False):
     src/legacy/isothermal_flow_witch.jl:152-160): −q.m·rDw2(h0,r)·
     (Pp/ρp² + Pq/ρq²)·x_pq + 8·q.m·rDw2·μ/(ρpρq)·(v_pq·x_pq)/(r²+0.01h0²)
     ·x_pq. P/ρ² and 1/ρ are hoisted per particle; the per-pair body
-    carries one divide (fast_math-eligible via _div_fn). cfg.av_alpha adds
+    carries one divide. cfg.av_alpha adds
     the Monaghan Π term (models/legacy_witch.py internal_force) riding the
     same divide — μ_av = h0·dot·di is one extra FMA chain."""
     f = state.fields
@@ -996,7 +604,6 @@ def legacy_force_pass(engine, state, cfg, interpret=False):
     hinv = 1.0 / cfg.h0
     eps_h2 = 0.01 * cfg.h0 * cfg.h0
     mu8 = 8.0 * cfg.mu
-    div = _div_fn(cfg, interpret)
 
     def body(p_all, q_all, r2, maskf):
         r = jnp.sqrt(r2)
@@ -1005,7 +612,7 @@ def legacy_force_pass(engine, state, cfg, interpret=False):
         dx = [p_all[1 + a] - q_all[1 + a][None, :] for a in range(d)]
         dv = [p_all[1 + d + a] - q_all[1 + d + a][None, :] for a in range(d)]
         dot = sum(dx[a] * dv[a] for a in range(d))
-        di = div(dot, r2 + eps_h2)
+        di = dot / (r2 + eps_h2)
         s = -ker * (p_all[2 + 2 * d] + q_all[2 + 2 * d][None, :])
         w = mu8 * ker * p_all[3 + 2 * d] * q_all[3 + 2 * d][None, :] * di
         if av:
@@ -1057,8 +664,8 @@ def iso_static_force_pass(engine, state, cfg, interpret=False):
     src/legacy/isothermal_static_witch.jl:150-160): −q.m·rDw2(p.h,r)·
     (Pp/ρp² + Pq/ρq²)·x_pq + 8·q.m·rDw2·μ/(ρpρq)·(v_pq·x_pq)
     /(r² + 0.0025·(p.h+q.h)²)·x_pq. h streams raw (the viscous denominator
-    needs hp+hq); the kernel's 1/h and the viscous divide both ride
-    _div_fn (fast_math-eligible)."""
+    needs hp+hq), so the pair body carries two divides (the kernel's 1/h
+    and the viscous term)."""
     f = state.fields
     d = engine.dim
     rho_f = jnp.maximum(f["rho"], 1e-12)
@@ -1074,12 +681,11 @@ def iso_static_force_pass(engine, state, cfg, interpret=False):
                               [f["v"][:, a] for a in range(d)] + scalars]
     DW = _rdw_const(d)
     mu8 = 8.0 * cfg.mu
-    div = _div_fn(cfg, interpret)
 
     def body(p_all, q_all, r2, maskf):
         hp = p_all[1 + d]
         r = jnp.sqrt(r2)
-        hinv = div(1.0, hp)
+        hinv = 1.0 / hp
         t = jnp.maximum(1.0 - r * hinv, 0.0) * maskf
         h2 = hinv * hinv
         ker = DW * t * t * t * (h2 * h2 if d == 2 else h2 * h2 * hinv)
@@ -1088,7 +694,7 @@ def iso_static_force_pass(engine, state, cfg, interpret=False):
         dv = [p_all[2 + d + a] - q_all[2 + d + a][None, :] for a in range(d)]
         dot = sum(dx[a] * dv[a] for a in range(d))
         h_pq = hp + q_all[1 + d][None, :]
-        di = div(dot, r2 + 0.0025 * h_pq * h_pq)
+        di = dot / (r2 + 0.0025 * h_pq * h_pq)
         s = -ker * (p_all[3 + 2 * d] + q_all[3 + 2 * d][None, :])
         w = mu8 * ker * p_all[4 + 2 * d] * q_all[4 + 2 * d][None, :] * di
         if av:  # Monaghan Π, h̄ = ½(hp+hq), FLUID–FLUID only
@@ -1150,7 +756,6 @@ def adia_entropy_force_pass(engine, state, cfg, interpret=False):
     mu4dt = 4.0 * cfg.mu * cfg.dt
     av = getattr(cfg, "av_alpha", 0.0)
     c_av = cfg.c_av if av else 0.0
-    div = _div_fn(cfg, interpret)
 
     def body(p_all, q_all, r2, maskf):
         r = jnp.sqrt(r2)
@@ -1160,7 +765,7 @@ def adia_entropy_force_pass(engine, state, cfg, interpret=False):
         dv = [p_all[1 + d + a] - q_all[1 + d + a][None, :] for a in range(d)]
         dot = sum(dx[a] * dv[a] for a in range(d))
         rr = p_all[3 + 2 * d] * q_all[3 + 2 * d][None, :]  # 1/(ρp·ρq)
-        di = div(dot, r2 + eps_h2)
+        di = dot / (r2 + eps_h2)
         s = -kerq * (p_all[2 + 2 * d] + q_all[2 + 2 * d][None, :])
         both = p_all[4 + 2 * d] * q_all[4 + 2 * d][None, :]
         w = mu8 * kerq * rr * di
@@ -1337,7 +942,6 @@ def pavelka_mass_pass(engine, state, cfg, interpret=False):
     nu = cfg.nu
     b0 = 2 + d
     fixed = cfg.fixed_diffusion
-    div = _div_fn(cfg, interpret)
 
     def body(p_all, q_all, r2, maskf):
         hp = p_all[1 + d]
@@ -1348,7 +952,7 @@ def pavelka_mass_pass(engine, state, cfg, interpret=False):
 
         r = jnp.sqrt(r2)
         h_ij = 0.5 * (hp + hq)
-        hinv = div(1.0, h_ij)
+        hinv = 1.0 / h_ij
         t = jnp.maximum(1.0 - r * hinv, 0.0) * maskf
         hinv2 = hinv * hinv
         ker = wqq * DW * t * t * t * (hinv2 * hinv2 if d == 2
@@ -1360,7 +964,7 @@ def pavelka_mass_pass(engine, state, cfg, interpret=False):
         if fixed:
             diff = 2.0 * nu * (rhop - rhoq) * ker
         else:  # reference-faithful kernel-less form (:199-200), divergent
-            diff = div(2.0 * nu, rhop) * (rhop - rhoq) * maskf
+            diff = 2.0 * nu / rhop * (rhop - rhoq) * maskf
         return [conv + both * diff]
 
     pad_vals = [0.0] * d + [_hfloor(engine)] + [0.0] * len(hoisted)
@@ -1390,7 +994,6 @@ def pavelka_momentum_entropy_pass(engine, state, cfg, interpret=False):
     DW = _rdw_const(d)
     mu, dt = cfg.mu, cfg.dt
     b0 = 2 + d
-    div = _div_fn(cfg, interpret)
 
     def body(p_all, q_all, r2, maskf):
         hp = p_all[1 + d]
@@ -1404,7 +1007,7 @@ def pavelka_momentum_entropy_pass(engine, state, cfg, interpret=False):
 
         r = jnp.sqrt(r2)
         h_ij = 0.5 * (hp + hq)
-        hinv = div(1.0, h_ij)
+        hinv = 1.0 / h_ij
         t = jnp.maximum(1.0 - r * hinv, 0.0) * maskf
         hinv2 = hinv * hinv
         ker = wqq * DW * t * t * t * (hinv2 * hinv2 if d == 2
@@ -1414,11 +1017,11 @@ def pavelka_momentum_entropy_pass(engine, state, cfg, interpret=False):
         dot = sum(dx[a] * dv[a] for a in range(d))
 
         du = -rhop * ker * (Ptp + Ptq)
-        visc = div(div(rhop * 8.0 * ker * mu, rhop * rhoq) * dot,
-                   r2 + 0.0025 * (hp + hq) ** 2)
+        visc = ((rhop * 8.0 * ker * mu / (rhop * rhoq) * dot)
+                / (r2 + 0.0025 * (hp + hq) ** 2))
         s = du + visc
-        dS = (div(div(-4.0 * mp * mq * ker * mu, Tp * rhoq) * dot * dot,
-                  r2 + 0.01 * hp * hq) * dt) * both
+        dS = ((-4.0 * mp * mq * ker * mu / (Tp * rhoq) * dot * dot)
+              / (r2 + 0.01 * hp * hq) * dt) * both
         return [s * dx[a] for a in range(d)] + [dS]
 
     # rho pads with its floor: it sits in the rhop·rhoq and Tp·rhoq

@@ -3,7 +3,7 @@
 The reference assembles an explicit sparse matrix over the neighbor structure
 for the ISPH pressure-Poisson solve (assemble_matrix, src/core.jl:196-225;
 used by sph_jl/examples/collapse_dry_implicit.jl:222-231 with an
-IterativeSolvers CG). On TPU the matrix is never needed explicitly — the
+IterativeSolvers CG). Here the matrix is never needed explicitly — the
 operator *is* one neighbor sweep, so we expose:
 
   * ``assemble_matvec(engine, state, nbrs, coeff)`` → a linear operator

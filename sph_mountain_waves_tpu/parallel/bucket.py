@@ -4,8 +4,8 @@ The flat-layout ShardEngine (domain.py) re-sorts every device into the
 GLOBAL cell grid, so per-device memory and stencil work do not shrink with
 device count (kept as the reference-shaped cross-check). This module is the
 production design: each device owns a **slab-local bucket grid** of
-``slab_w + 4`` x-columns (2 ghost columns per side) rounded up to the TPU
-tile width, and the state lives in the resident bucket layout
+``slab_w + 4`` x-columns (2 ghost columns per side) rounded up to the
+grid's ×128 x quantum, and the state lives in the resident bucket layout
 (ops/neighbors.py layout="bucket"), so
 
   * per-device memory/work ∝ 1/n_dev (the local grid, not the global one),
@@ -26,8 +26,8 @@ shifted origins.
 Ghost-refresh cadence: ghost columns are refreshed once per rebuild (every
 step). The 2-deep ghost band means ring-1 ghosts have complete neighborhoods
 locally, so ghost densities/pressures are recomputed locally rather than
-re-exchanged (SURVEY §2.6 halo-exchange plan; scaling-book-style: the
-collective rides ICI once per step).
+re-exchanged (SURVEY §2.6 halo-exchange plan: one halo collective per
+step between neighbouring devices).
 
 Drift/rescatter discipline: the skin-budget predicate is made collective
 with ``pmax`` so every device rescatters on the same step — this keeps the
@@ -60,11 +60,10 @@ def _round_up(v, m):
     return -(-v // m) * m
 
 
-# per-axis local-grid rounding: x is the lane axis (XLA pad/slice shape
-# cliffs want ×128), y the sublane axis (×8), z unconstrained — matching
-# NeighborEngine.create's global-grid rounding. The slab axis should be a
+# per-axis local-grid rounding: ×128 on x, ×8 on y, z unconstrained —
+# matching NeighborEngine.create's global-grid rounding. The slab axis should be a
 # LONG axis of the domain: x for the wide 2-D witch; y for witch3d, whose
-# global nx is already one 128-lane quantum so x-slabs cannot shrink it.
+# global nx is already one ×128 quantum so x-slabs cannot shrink it.
 _AXIS_QUANTUM = (128, 8, 1)
 
 
@@ -263,10 +262,10 @@ def build_bucket_sharding(sys, n_dev: int, slab_axis: int = 0,
 def pick_slab_axis(engine, n_dev: int) -> int:
     """Default slab axis for a production run: the axis whose slab-local
     grid (slab + 2-ghost band, rounded up to that axis's tile quantum —
-    ×128 lanes on x, ×8 sublanes on y) is SMALLEST relative to the global
+    ×128 on x, ×8 on y) is SMALLEST relative to the global
     grid, i.e. the axis where slicing actually shrinks per-device memory
     and stencil work. This is what makes y win for the 3-D witch (global
-    nx is one 128-lane quantum — x-slabs round straight back to it) and x
+    nx is one ×128 quantum — x-slabs round straight back to it) and x
     win for the wide 2-D witch. Axes too shallow for the ghost depth
     (slab_w < GHOST: mirrors only reach adjacent devices) are excluded;
     if none qualifies, fall back to the axis with the most cells."""

@@ -1,4 +1,4 @@
-"""Multi-chip domain decomposition (L0): slab sharding over ICI.
+"""Multi-device domain decomposition (L0): slab sharding over a 1-D mesh.
 
 The reference parallelizes only with shared-memory threads (SURVEY §2.6);
 its locality structure — interactions strictly r ≤ h through a uniform cell
@@ -8,7 +8,7 @@ exactly what makes distributed domain decomposition work. Here:
   * the cell grid is split along x into contiguous slabs, one per device of
     a 1-D ``jax.sharding.Mesh`` axis,
   * every step, each device sends a 2-cell-deep **halo** of boundary
-    particles to its neighbors with ``lax.ppermute`` (rides ICI) — deep
+    particles to its neighbors with ``lax.ppermute`` — deep
     enough that ring-1 ghosts have complete neighborhoods locally, so ghost
     densities/pressures are recomputed locally instead of re-exchanged,
   * particles crossing a slab boundary **migrate** via the same ppermute

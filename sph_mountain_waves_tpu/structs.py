@@ -2,7 +2,7 @@
 
 The reference stores particles as a ``Vector{mutable struct}`` with a spatial
 hash scaffold (src/structs.jl:43-92) and views fields through
-``ParticleField`` (src/structs.jl:118-125). The TPU-native design inverts the
+``ParticleField`` (src/structs.jl:118-125). This design inverts the
 layout: **state is a struct-of-arrays pytree** (``ParticleState``) with fixed
 capacity and an ``active`` mask, so the whole simulation state flows through
 ``jit``/``lax.scan`` without reallocation, and "removing" a particle
@@ -83,7 +83,7 @@ class ParticleSystem:
         (src/core.jl:105-107); also the cell size.
     dim : 2 or 3 (reference infers from key_lim[3]==1, src/structs.jl:70-82).
     defaults : optional dict of default field values for generated particles.
-    dtype : state float dtype (float32 for TPU; tests may use float64).
+    dtype : state float dtype (float32 on the GPU; tests may use float64).
     """
 
     def __init__(self, fields: dict, domain: Shape, h: float, dim: int = 2,

@@ -3,7 +3,7 @@
 The reference has no structured profiling (``@time`` around main loops,
 SURVEY §5). Here particle-steps/sec is a first-class metric: wrap a frame
 loop in a ``StepTimer`` and read throughput/series; ``trace`` context wraps
-``jax.profiler`` for TPU traces.
+``jax.profiler`` for device traces.
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ the mountain-wave schemes build a two-panel average/maximum-velocity figure
 committed commented-out; here the figure is written whenever a run has an
 output directory, so a production job leaves PVD + CSV + figures behind).
 
-matplotlib is imported lazily with the Agg backend (headless SLURM/TPU
+matplotlib is imported lazily with the Agg backend (headless SLURM/GPU
 nodes); a missing or broken matplotlib degrades to a warning, never a
 failed production run.
 """
@@ -156,7 +156,7 @@ _SPARK = "▁▂▃▄▅▆▇█"
 def ascii_series(name: str, values, width: int = 64) -> str:
     """One-line terminal sparkline of a time series — the in-run plotting
     channel (the reference renders unicodeplots lineplots during the main
-    loop, src/current/wcsph_perturbed_witch.jl:15,393-405; on a TPU batch
+    loop, src/current/wcsph_perturbed_witch.jl:15,393-405; on a batch
     node a one-liner beats a 20-row canvas). Values are resampled to
     ``width`` columns and binned over the series range."""
     import numpy as np

@@ -4,9 +4,9 @@ The reference carries an RKPM sketch as dead code (never called, and broken
 as committed: src/legacy/isothermal_static_witch.jl:202-210 assembles the
 moment matrix M from a SINGLE pair and solves M\\F per pair, which is
 singular — the moment matrix must be summed over the whole neighborhood).
-This is the working TPU-native equivalent: per-particle quadratic-basis
-moment matrices assembled with one pair sweep, batched 6x6 solves (MXU
-friendly), and a corrected-kernel pair sum
+This is the working equivalent: per-particle quadratic-basis moment
+matrices assembled with one pair sweep, batched 6x6 solves, and a
+corrected-kernel pair sum
 
     W~(p, q) = (beta_p . H(x_p - x_q)) W(p.h, r),
     beta_p   = M_p^{-1} e_0,

@@ -256,7 +256,7 @@ def test_wave_momentum_flux_reads_linear_drag():
     w′ = U·ζₓ and u′ = −U·ζ_z, on a particle lattice; the band integral
     −Σ m·u′w′/dz must recover the closed form D = (π/4)·ρ·N·U·hₘ²
     at ANY band height (Eliassen–Palm flux is z-independent below
-    dissipation). This is the observable the TPU linear-drag run gates the
+    dissipation). This is the observable the linear-drag run gates the
     end-to-end physics with (scripts/linear_drag.py)."""
     import jax.numpy as jnp
     from sph_mountain_waves_tpu.structs import ParticleState

@@ -388,8 +388,8 @@ def test_anisotropic_cells_match_bruteforce(layout):
 
 def test_stencil_compaction_lowerings_bit_identical(monkeypatch):
     """The two stencil-compaction lowerings (per-offset einsum vs the
-    elementwise source-slot loop used when the einsum's padded TPU temps
-    would blow HBM — round-5 witch3d OOM fix) must place bit-identical
+    elementwise source-slot loop used when the einsum's temps would not
+    fit in device memory at the witch3d grid) must place bit-identical
     states."""
     import sph_mountain_waves_tpu.ops.neighbors as nb
 

@@ -1,5 +1,6 @@
-"""Pallas pair-kernel gates (interpret mode on CPU; the same kernels compile
-on TPU — benched at 4.7e7 particle-steps/s @1M on v5e)."""
+"""Pallas pair-kernel gates: interpret mode on the CPU; the same kernel
+compiles for the GPU through the Triton route, where the ``gpu``-marked
+parity test runs it at the widths of the benchmarked configurations."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,62 +37,91 @@ def test_density_kernel_matches_xla(interpret_kernels):
     np.testing.assert_allclose(got[act], ref[act], rtol=1e-5, atol=1e-6)
 
 
-def test_rows_per_program_stacking(interpret_kernels, monkeypatch):
-    """rp grid rows stacked into one program ([cap, rp·nx] blocks) must be
-    bit-identical to the one-row kernel — exercises the per-sub-row q-row
-    validity masking and the grouped kmax trip bound."""
-    cfg = WitchConfig(n_rows=10, dtype="float32", self_density=True,
-                      layout="bucket", skin=0.2)
+def _witch_state(**kw):
+    cfg = WitchConfig(**{**dict(n_rows=10, dtype="float32", self_density=True,
+                                layout="bucket", skin=0.2), **kw})
     sys_ = w.make_system(cfg)
     state = sys_.freeze()
     eng = sys_.engine
     state, nbrs = jax.jit(eng.rebuild)(state)
-    outs = {}
-    for rp in (1, 2, 4):
-        assert eng.lims[1] % rp == 0, "test grid must divide evenly"
-        monkeypatch.setattr(pp, "ROWS_PER_PROGRAM", rp)
-        outs[rp] = np.asarray(pp.density_pass(eng, state, cfg))
-    np.testing.assert_array_equal(outs[2], outs[1])
-    np.testing.assert_array_equal(outs[4], outs[1])
+    return cfg, eng, state, nbrs
 
 
-def test_x_tiled_kernel_matches_untiled(interpret_kernels, monkeypatch):
-    """Wide-grid x-tiling (round-5 ~2M-VMEM-cliff lever): column-chunk
-    programs with per-chunk trip bounds (chunk_kmax) and per-stencil-row
-    halo windows must be BIT-identical to the merged-span kernel — both
-    for exact division (cx=128, ncx=3) and a PARTIAL last chunk (cx=256,
-    ncx=2: the 128 overhang columns compute wrap garbage that the caller
-    slices off)."""
-    cfg = WitchConfig(n_rows=36, dtype="float32", self_density=True,
-                      layout="bucket", skin=0.2)
-    sys_ = w.make_system(cfg)
-    state = sys_.freeze()
-    eng = sys_.engine
-    assert eng.lims[0] == 384, eng.lims   # wide enough for both cases
-    state, nbrs = jax.jit(eng.rebuild)(state)
-    ref = np.asarray(pp.density_pass(eng, state, cfg))
-    for cx in (128, 256):
-        monkeypatch.setattr(pp, "CHUNK_LANES", cx)
-        got = np.asarray(pp.density_pass(eng, state, cfg))
-        np.testing.assert_array_equal(got, ref)
+@pytest.mark.parametrize("tx", [128, 256])
+def test_tile_width_bit_identical(interpret_kernels, monkeypatch, tx):
+    """x-tiles of 128 lanes (three per 384-cell row) or 256 lanes (two per
+    row, the second overhanging the row by 128 columns that the wrapper
+    slices off) give the same bits as the interpreter's one 512-lane tile
+    per row: each element's sum runs in the same order whatever the tiling.
+    Density (static fields, self term) and momentum (two outputs, floor-
+    padded h) both."""
+    cfg, eng, state, _ = _witch_state(n_rows=36)
+    assert eng.lims[0] == 384, eng.lims
+    ref = [np.asarray(pp.density_pass(eng, state, cfg))] + [
+        np.asarray(o) for o in pp.momentum_pass(eng, state, cfg)]
+    wrapped = pp.make_pair_kernel_fn
+    monkeypatch.setattr(pp, "make_pair_kernel_fn",
+                        lambda *a, **k: wrapped(*a, **{**k, "tx": tx}))
+    got = [np.asarray(pp.density_pass(eng, state, cfg))] + [
+        np.asarray(o) for o in pp.momentum_pass(eng, state, cfg)]
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
 
 
-def test_x_tiled_full_step_matches(interpret_kernels, monkeypatch):
-    """Full Verlet steps (density + pressure + momentum passes, incl.
-    dynamic-field kernels) under forced x-tiling with a partial chunk
-    match the untiled run exactly."""
-    outs = {}
-    for cx in (0, 256):   # 0 = never tile
-        monkeypatch.setattr(pp, "CHUNK_LANES", cx)
-        cfg = WitchConfig(n_rows=36, dtype="float32", self_density=True,
-                          layout="bucket", skin=0.2, use_pallas=True)
-        sys_ = w.make_system(cfg)
-        state = sys_.freeze()
-        step = jax.jit(w.make_step(cfg, sys_.engine))
-        for _ in range(4):
-            state = step(state)
-        outs[cx] = [float(v) for v in velocity_diagnostics(state)]
-    assert outs[256] == outs[0]
+@pytest.mark.parametrize("cap", [12, 24])
+def test_kernel_cap_chunks_match_xla(interpret_kernels, cap):
+    """Caps that are not a multiple of the 8-slot p chunk (12: a half-
+    empty second chunk) or span three chunks (24, the terrain cap): density
+    against pair_sum, momentum against the plain XLA sweep."""
+    from sph_mountain_waves_tpu.ops.kernel_parity import reference_sweeps
+    cfg, eng, state, nbrs = _witch_state(n_rows=8, bucket_cap=cap)
+    assert eng.cap == cap
+    assert int(np.asarray(state.active).sum()) == int(
+        w.make_system(cfg).n_built)           # nothing dropped at this cap
+    act = np.asarray(state.active)
+    ref = np.asarray(pair_sum(eng, state, nbrs,
+                              lambda p, q, r: q.m * wendland2(p.h, r),
+                              self_interaction=True))
+    got = np.asarray(pp.density_pass(eng, state, cfg))
+    np.testing.assert_allclose(got[act], ref[act], rtol=1e-5, atol=1e-6)
+    rng = np.random.default_rng(0)
+    v = jnp.where(state.active[:, None],
+                  jnp.asarray(rng.standard_normal(state.fields["v"].shape),
+                              jnp.float32), 0.0)
+    state = state.replace(v=v, rho=jnp.where(state.active, got, 0.0))
+    got_m = [np.asarray(o) for o in pp.momentum_pass(eng, state, cfg)]
+    with reference_sweeps():
+        ref_m = [np.asarray(o) for o in pp.momentum_pass(eng, state, cfg)]
+    for g, r in zip(got_m, ref_m):
+        assert np.abs(g[act] - r[act]).max() <= 1e-5 * np.abs(r[act]).max()
+
+
+def test_kernel_refuses_cpu_without_interpret():
+    """Off the GPU the kernel raises instead of silently interpreting."""
+    cfg, eng, state, _ = _witch_state()
+    with pytest.raises(RuntimeError, match="GPU only"):
+        pp.density_pass(eng, state, cfg)
+
+
+def test_parity_check_interpret_small():
+    """The card's parity check (ops/kernel_parity.py) runs end to end on
+    the CPU for one small configuration: the Hopkins smoothed-pressure
+    root (density-like) and two-kernel momentum (force-like) passes."""
+    from sph_mountain_waves_tpu.ops import kernel_parity as kp
+    recs = kp.check_kernel_parity(
+        {"hopkins_total": kp.SMALL_CASES["hopkins_total"]}, interpret=True,
+        log=lambda *_: None)
+    assert [r["pass_"] for r in recs] == [
+        "pressure_pass", "hopkins_momentum_pass", "hopkins_momentum_pass"]
+    assert all(r["ok"] for r in recs)
+
+
+@pytest.mark.gpu
+def test_kernel_parity_on_card(gpu):
+    """Every pass, compiled for the card, against the plain XLA sweep at the
+    widths of the configurations that use it (ops/kernel_parity.py)."""
+    from sph_mountain_waves_tpu.ops.kernel_parity import check_kernel_parity
+    check_kernel_parity()
 
 
 @pytest.mark.heavy
@@ -373,25 +403,3 @@ def test_adiabatic_step_pallas_matches_xla(interpret_kernels, flow, corrected):
             float(S.sum()), float(np.abs(S).max())]
     assert np.all(np.isfinite(outs[True]))
     np.testing.assert_allclose(outs[True], outs[False], rtol=2e-4)
-
-
-def test_fast_math_wiring_matches_exact(interpret_kernels):
-    """cfg.fast_math swaps pair-body divides for pl.reciprocal(approx=True).
-    Interpret mode evaluates that as an exact f32 reciprocal, so the only
-    residual vs the plain-divide path is one extra rounding per
-    multiply-by-inverse — trajectories must agree to f32 roundoff. Guards
-    the wiring (field indices, recip placement) without TPU hardware; the
-    hardware approximation error is measured on-device (BENCHMARKS.md)."""
-    outs = {}
-    for fm in (False, True):
-        cfg = WitchConfig(n_rows=10, dtype="float32", self_density=True,
-                          layout="bucket", skin=0.2, use_pallas=True,
-                          fast_math=fm)
-        sys_ = w.make_system(cfg)
-        state = sys_.freeze()
-        step = jax.jit(w.make_step(cfg, sys_.engine))
-        for _ in range(5):
-            state = step(state)
-        outs[fm] = np.asarray(state.fields["x"])
-    # positions are O(1e5) m; 1e-3 m absolute = f32 roundoff at that scale
-    np.testing.assert_allclose(outs[True], outs[False], rtol=1e-6, atol=1e-3)

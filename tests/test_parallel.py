@@ -378,7 +378,7 @@ def test_bucket_sharded_local_memory_shrinks():
     sys = w.make_system(cfg)
     sys.freeze()
     bds = build_bucket_sharding(sys, 8)
-    # local grid = round128(slab_w + 4): the TPU lane alignment floors the
+    # local grid = round128(slab_w + 4): the ×128 x quantum floors the
     # local width at 128 columns, so the shrink at this test size is 3x
     # (384 -> 128); at production scale (nx=1792 -> 256) it is 7x
     assert bds.local_lims[0] == 128

@@ -105,7 +105,7 @@ def test_nusselt_ra1e4_published_value():
     benchmark (Ouertatani et al. 2008: Nu = 2.158). A strong seed skips
     the slow linear growth; Nu is averaged over the saturated plateau.
     Measured convergence (rounds 3-5): 1.81 (24 rows) / 1.90 (32) /
-    1.95 (48) / 1.96 (64, TPU bucket) — the sequence saturates at ~0.91
+    1.95 (48) / 1.96 (64, bucket layout) — the sequence saturates at ~0.91
     of the published value (kernel smoothing of the thermal boundary
     layer at h = 2dr; the same ~9% deficit holds at the second published
     point, Nu(1e5) = 3.54 vs 3.91). Round 5 tightens the round-3 15%
@@ -113,7 +113,7 @@ def test_nusselt_ra1e4_published_value():
     bucket-path value 1.933 = 10.4% off; flat round-3 value 1.95)."""
     cfg = rb.Config(n_rows=48, aspect=1.0, Ra=1e4, sidewalls="adiabatic",
                     seed_amp=0.3, t_end=60.0, n_frames=20,
-                    layout="bucket", skin=0.15, use_pallas=True)
+                    layout="bucket", skin=0.15)
     out = rb.run(cfg)
     nu = float(np.mean(out["Nu"][-8:]))
     assert abs(nu / 2.158 - 1.0) < 0.13, nu
@@ -123,11 +123,11 @@ def test_nusselt_ra1e4_published_value():
 def test_nusselt_ra1e5_published_value():
     """Second published Nu(Ra) point (round 5): Ra = 1e5, same square
     adiabatic cavity (Ouertatani et al. 2008: Nu = 3.91). Measured on
-    the TPU bucket path round 5: Nu = 3.54 at 48 rows (9.4% below, the
+    the bucket layout in round 5: Nu = 3.54 at 48 rows (9.4% below, the
     same thermal-BL smoothing deficit as Ra=1e4) — gate at 12%."""
     cfg = rb.Config(n_rows=48, aspect=1.0, Ra=1e5, sidewalls="adiabatic",
                     seed_amp=0.3, t_end=30.0, n_frames=20,
-                    layout="bucket", skin=0.15, use_pallas=True)
+                    layout="bucket", skin=0.15)
     out = rb.run(cfg)
     nu = float(np.mean(out["Nu"][-8:]))
     assert abs(nu / 3.91 - 1.0) < 0.12, nu

@@ -125,7 +125,7 @@ def test_stretch_config_sizing():
     assert cfg.layout == "bucket" and cfg.use_pallas
     # bucket cells must be EXACTLY 2 lattice spacings wide: any other ratio
     # aliases against the cubic lattice (3 planes/axis in ~7% of cells ->
-    # occupancy 27 -> cap 40 -> ~5x slot memory, OOM at 3.2M on one v5e)
+    # occupancy 27 -> cap 40 -> ~5x slot memory)
     assert cfg.lattice_cells
     # n_rows=12 -> dr=26000/12 is NOT exactly representable: the regression
     # case for per-point bin-edge flips (22% overflow drops un-nudged)
